@@ -1,13 +1,19 @@
 #!/usr/bin/env python
 """CLI of the PyTorch port: main.py's interface, plus --device and --net_g.
 
+    python main_torch.py --cfg cfg/birds_2stg_splitz_cap_ca.realcls.yml \
+        --synthetic --max_steps 3
     python main_torch.py --cfg cfg/birds_2stg_splitz_cap_ca_eval.realcls.yml \
         --net_g path/to/netG.pth --synthetic --max_steps 2
 
-Only the offline evaluate path (TRAIN.FLAG False) is ported: it samples
-the test split with the generator named by --net_g or TRAIN.NET_G (a
-reference netG .pth, or a state_dict saved by this package) and writes PNGs
-under ./output/<dataset>_<config>_<timestamp>/eval/. Training raises.
+TRAIN.FLAG True trains: ``--max_steps`` G+D steps from a seeded state,
+with the epoch line and the epoch image grids under
+./output/<dataset>_<config>_<timestamp>/Image/. Until checkpoints (ROADMAP
+M10) and the IS tower (M11) are ported, a run must be bounded by
+--max_steps and reach no snapshot epoch and no IS score. TRAIN.FLAG False
+samples the test split with the generator named by --net_g or TRAIN.NET_G
+(a reference netG .pth, or a state_dict saved by this package) and writes
+PNGs under ./output/<dataset>_<config>_<timestamp>/eval/.
 """
 
 from __future__ import annotations
@@ -22,12 +28,12 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from text2img_ekl_tpu.config import cfg_from_file  # noqa: E402
+from text2img_ekl_tpu_torch.config import cfg_from_file  # noqa: E402
 
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(
-        description='Sample a text-to-image GAN (PyTorch port)')
+        description='Train or sample a text-to-image GAN (PyTorch port)')
     parser.add_argument(
         '--cfg', dest='cfg_file', type=str,
         default='cfg/birds_2stg_splitz_cap_ca_eval.realcls.yml')
@@ -41,7 +47,9 @@ def parse_args(argv=None):
                              'TRAIN.NET_G)')
     parser.add_argument('--manualSeed', type=int, help='manual seed')
     parser.add_argument('--max_steps', type=int, default=None,
-                        help='stop after N data batches - debug only')
+                        help='training: the G+D steps to take (required '
+                             'until ROADMAP M10/M11); sampling: the data '
+                             'batches to sample')
     parser.add_argument('--synthetic', action='store_true',
                         help='force the synthetic dataset')
     return parser.parse_args(argv)
@@ -58,14 +66,13 @@ def main(argv=None):
         cfg.TRAIN.NET_G = args.net_g
     if args.synthetic:
         cfg.TPU_SYNTHETIC_DATA = True
-    if cfg.TRAIN.FLAG:
-        raise NotImplementedError(
-            'TRAIN.FLAG True: training is not ported to PyTorch yet '
-            '(ROADMAP.md); use main.py')
     print('Using config:')
     pprint.pprint(cfg.to_dict())
 
-    args.manualSeed = 100  # the eval seed (main.py:87-94)
+    if not cfg.TRAIN.FLAG:
+        args.manualSeed = 100  # the eval seed (main.py:87-94)
+    elif args.manualSeed is None:
+        args.manualSeed = random.randint(1, 10000)
     random.seed(args.manualSeed)
     import numpy as np
     import torch
@@ -80,8 +87,12 @@ def main(argv=None):
     from text2img_ekl_tpu_torch.train.trainer import CondGANTrainer
     algo = CondGANTrainer(cfg, output_dir, device=args.device)
     start_t = time.time()
-    algo.evaluate(max_batches=args.max_steps)
-    print('Total time for sampling:', time.time() - start_t)
+    if cfg.TRAIN.FLAG:
+        algo.train(max_steps=args.max_steps)
+        print('Total time for training:', time.time() - start_t)
+    else:
+        algo.evaluate(max_batches=args.max_steps)
+        print('Total time for sampling:', time.time() - start_t)
 
 
 if __name__ == '__main__':

@@ -1,7 +1,7 @@
-"""The PyTorch port's entry points on the CPU: the evaluate loop end to
-end at a tiny size, the CLI's refusals, chip_smoke's refusals, and that no
-port module imports JAX (of the JAX package, only the pure-Python config
-and data modules are reused)."""
+"""The PyTorch port's entry points on the CPU: the evaluate loop and a
+bounded training run end to end at a tiny size, the refusals of the CLI,
+the trainer and chip_smoke, and that no port module, nor main_torch or
+chip_smoke, imports JAX or anything of the JAX package."""
 
 import os
 import shutil
@@ -13,8 +13,8 @@ import pytest
 import torch
 from PIL import Image
 
-from text2img_ekl_tpu.config import cfg_from_file
-from text2img_ekl_tpu.data import DataLoader, SyntheticTextDataset
+from text2img_ekl_tpu_torch.config import cfg_from_file
+from text2img_ekl_tpu_torch.data import DataLoader, SyntheticTextDataset
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EVAL_CFG = os.path.join(REPO, 'cfg',
@@ -22,8 +22,20 @@ EVAL_CFG = os.path.join(REPO, 'cfg',
 TRAIN_CFG = os.path.join(REPO, 'cfg', 'birds_2stg_splitz_cap_ca.realcls.yml')
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The suite runs in several worker processes at once; torch's default
+    of one thread per core in each of them oversubscribes the CPU (the
+    port's files took 3x longer under six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _run(args, cwd=REPO, **env):
     full_env = {k: v for k, v in os.environ.items() if k != 'T2I_JAX_CACHE'}
+    full_env['OMP_NUM_THREADS'] = '1'  # see _one_torch_thread
     full_env.update(env)
     return subprocess.run([sys.executable] + args, cwd=cwd, env=full_env,
                           capture_output=True, text=True, timeout=300)
@@ -35,18 +47,16 @@ def test_port_imports_no_jax():
         "import text2img_ekl_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
-        "for m in mods + ['main_torch', 'chip_smoke']:\n"
+        "for m in mods + ['main_torch', 'chip_smoke', "
+        "'tools.profile_torch_sampler']:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted({m.split('.')[0] for m in sys.modules} & "
-        "{'jax', 'flax', 'optax', 'orbax'})\n"
-        "bad += [m for m in sys.modules if m.split('.')[0] == "
-        "'text2img_ekl_tpu' and m.split('.')[1:2] not in "
-        "([], ['config'], ['data'])]\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'optax', 'orbax', 'text2img_ekl_tpu'))\n"
         "print(len(mods), bad)\n")
     proc = _run(['-c', code])
     assert proc.returncode == 0, proc.stderr
     n, bad = proc.stdout.split(maxsplit=1)
-    assert int(n) >= 15 and bad.strip() == '[]', proc.stdout
+    assert int(n) >= 22 and bad.strip() == '[]', proc.stdout
 
 
 def _tiny_cfg(tmp_path, **test):
@@ -112,8 +122,9 @@ def test_cli_refuses_what_is_not_ported_or_not_there(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='no CUDA device'):
             main_torch.main(['--cfg', EVAL_CFG, '--synthetic'])
-    with pytest.raises(NotImplementedError, match='TRAIN.FLAG'):
-        main_torch.main(['--cfg', TRAIN_CFG, '--device', 'cpu'])
+    with pytest.raises(NotImplementedError, match='M10'):  # unbounded
+        main_torch.main(['--cfg', TRAIN_CFG, '--device', 'cpu',
+                         '--synthetic'])
     cfg = _tiny_cfg(tmp_path)
     cfg.TEST.EVAL_MODE = False
     from text2img_ekl_tpu_torch.train.trainer import CondGANTrainer
@@ -121,6 +132,85 @@ def test_cli_refuses_what_is_not_ported_or_not_there(tmp_path):
                              data_loader=_loader(cfg, 2), device='cpu')
     with pytest.raises(NotImplementedError, match='train-mode sampling'):
         trainer.evaluate(max_batches=1)
+
+
+TINY_TRAIN_YML = """
+TRAIN:
+    FLAG: True
+    BATCH_SIZE: 4
+    MAX_EPOCH: 300
+    SNAPSHOT_INTERVAL: 10
+    COEFF:
+      UNCOND_LOSS: 1.0
+    G_CAPSULE: True
+    D_CAPSULE: True
+GAN:
+    EMBEDDING_DIM: 128
+    ENTITY_DIM: 200
+    MANIFD_DIM: 128
+    DF_DIM: 8
+    GF_DIM: 8
+    Z_DIM: 128
+    R_NUM: 2
+    B_CONDITION: True
+TREE:
+    BRANCH_NUM: 2
+WORKERS: 1
+TPU_COMPUTE_DTYPE: 'float32'
+"""
+
+
+def test_cli_trains_a_bounded_run(tmp_path, monkeypatch, capsys):
+    """main_torch with TRAIN.FLAG True at GF/DF_DIM 8: the epoch line,
+    the epoch grids, and networks that moved."""
+    import main_torch
+    cfg_path = tmp_path / 'tiny_train.yml'
+    cfg_path.write_text(TINY_TRAIN_YML)
+    monkeypatch.chdir(tmp_path)
+    main_torch.main(['--cfg', str(cfg_path), '--device', 'cpu',
+                     '--synthetic', '--max_steps', '2', '--manualSeed', '1'])
+    out = capsys.readouterr().out
+    assert '[0/300][BN=128][2 stages]' in out and 'Loss_D_all' in out
+    grids = [os.path.basename(p) for p in (tmp_path / 'output').glob(
+        '*/Image/*.png')]
+    assert sorted(grids) == ['epoch_000_fake_samples0.png',
+                             'epoch_000_fake_samples1.png',
+                             'real_samples.png']
+
+
+def test_train_moves_the_networks_and_refuses_unbounded_runs(tmp_path):
+    from text2img_ekl_tpu_torch.train.state import create_train_state
+    from text2img_ekl_tpu_torch.train.trainer import CondGANTrainer
+    cfg = cfg_from_file(TRAIN_CFG)
+    cfg.GAN.GF_DIM = cfg.GAN.DF_DIM = 8
+    cfg.TRAIN.BATCH_SIZE = 4
+    cfg.TPU_COMPUTE_DTYPE = 'float32'
+    ds = SyntheticTextDataset(num_items=8, base_size=64, branch_num=2,
+                              entity_dim=cfg.GAN.ENTITY_DIM,
+                              text_dim=cfg.TEXT.DIMENSION, train_pairs=True,
+                              uint8_output=True)
+    loader = DataLoader(ds, 4, shuffle=True, num_workers=1)
+    trainer = CondGANTrainer(cfg, str(tmp_path), data_loader=loader,
+                             device='cpu')
+    before = create_train_state(cfg, 'cpu', seed=0)
+    state = trainer.train(max_steps=3)   # crosses an epoch (2 batches)
+    assert state.step == 3
+    assert all(np.isfinite(v) for v in trainer.last_metrics.values())
+    for a, b in [(before.G, state.G)] + list(zip(before.Ds, state.Ds)):
+        assert any(not torch.equal(p, q) for p, q in
+                   zip(a.parameters(), b.parameters()))
+    assert len(os.listdir(trainer.image_dir)) == 1 + 2 * 2  # 2 epochs
+    for steps, match in ((None, 'M10'), (10 * 2, 'snapshot of epoch 9')):
+        with pytest.raises(NotImplementedError, match=match):
+            trainer.train(max_steps=steps)
+    # 3000 fakes pooled (batch 4, every 2nd step) before a snapshot
+    trainer.num_batches = 100
+    cfg.TRAIN.SNAPSHOT_INTERVAL = 100
+    with pytest.raises(NotImplementedError, match='IS score'):
+        trainer.train(max_steps=1500)
+    cfg.TRAIN.BIG_EVAL = True
+    with pytest.raises(NotImplementedError, match='M11'):
+        trainer.train(max_steps=1)
 
 
 def test_chip_smoke_refuses_without_a_card_or_the_repo(tmp_path):

@@ -42,6 +42,17 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 B = 2
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The suite runs in several worker processes at once; torch's default
+    of one thread per core in each of them oversubscribes the CPU (the
+    port's files took 3x longer under six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def small_cfg(use_cap=True):
     cfg = cfg_from_file(CFG)
     cfg.GAN.GF_DIM = 8

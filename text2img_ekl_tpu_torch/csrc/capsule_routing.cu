@@ -25,10 +25,23 @@
 // partials). The weight (1 MB at the flagship shape) is read once per pass
 // per sample and stays resident in the 50 MB L2 across blocks. Output is
 // written once. Floats throughout, as the JAX kernel computes in f32.
+//
+// The discriminator class head (16 input capsules of length 8*ndf = 512,
+// 201 output capsules of length 16) takes the second entry point,
+// capsule_routing_votes_fwd. There the factored form stops paying: a_j and
+// y_j would be 512 floats per output capsule, while the votes of a sample
+// are only 16 x 201 x 16 floats = 206 KB. So the votes are materialised,
+// as the TPU kernel does: a tiled float32 product (gemm_f32.cuh, 1.7 GFLOP
+// at a batch of 32) writes u[b, i, j, o] to a scratch of 6.6 MB that stays
+// in L2, and one block per sample routes over it with the couplings and
+// logits (I x J floats each) and the outputs (J x O) in shared memory.
+// What bounds this form is the vote product's float32 arithmetic.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include "gemm_f32.cuh"
 
 namespace {
 
@@ -206,6 +219,104 @@ cudaError_t launch(const float* x, const float* w, float* out, int B, int I,
   return cudaGetLastError();
 }
 
+// ---- materialised votes (in_length > 8) ----------------------------------
+
+// Shared memory: logits [I*J] | couplings [I*J] | outputs [J*O], each
+// rounded up to whole float4 so that the outputs can be read as float4.
+__host__ __device__ inline size_t round4(size_t n) { return (n + 3) & ~(size_t)3; }
+
+__host__ __device__ inline size_t votes_smem_bytes(int I, int J, int O) {
+  return sizeof(float) * (2 * round4((size_t)I * J) + (size_t)J * O);
+}
+
+// Dynamic routing of one sample per block over u [B, I, J, O]. A (j, o)
+// loop runs to a multiple of 32 so whole warps take part in the squash
+// reduction; the O values of one j sit in O neighbouring lanes.
+template <int O>
+__global__ void __launch_bounds__(kThreads)
+routing_votes_fwd_kernel(const float* __restrict__ u, float* __restrict__ out,
+                         int I, int J, int iters) {
+  extern __shared__ float4 smem4[];
+  float* bl = reinterpret_cast<float*>(smem4);
+  float* cs = bl + round4((size_t)I * J);
+  float* vs = cs + round4((size_t)I * J);
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float* ub = u + (size_t)b * I * J * O;
+  const int IJ = I * J;
+  const int JO = J * O;
+  const int JO32 = (JO + 31) & ~31;
+  for (int p = tid; p < IJ; p += kThreads) bl[p] = 0.f;
+  __syncthreads();
+  for (int r = 0; r < iters; ++r) {
+    // couplings: softmax of each row i over the output capsules
+    for (int i = warp; i < I; i += kWarps) {
+      const float* row = bl + (size_t)i * J;
+      float m = -INFINITY;
+      for (int j = lane; j < J; j += 32) m = fmaxf(m, row[j]);
+      m = warp_max(m);
+      float z = 0.f;
+      for (int j = lane; j < J; j += 32) z += expf(row[j] - m);
+      const float zi = 1.f / warp_sum(z);
+      for (int j = lane; j < J; j += 32)
+        cs[(size_t)i * J + j] = expf(row[j] - m) * zi;
+    }
+    __syncthreads();
+    const bool last = (r == iters - 1);
+    for (int t = tid; t < JO32; t += kThreads) {
+      const bool valid = t < JO;
+      const int j = t / O;
+      float s = 0.f;
+      if (valid)
+        for (int i = 0; i < I; ++i)
+          s = fmaf(cs[(size_t)i * J + j], ub[(size_t)i * JO + t], s);
+      float n2 = s * s;
+#pragma unroll
+      for (int off = O / 2; off > 0; off >>= 1)
+        n2 += __shfl_xor_sync(0xffffffffu, n2, off);
+      const float v = s * (n2 / (1.f + n2) * rsqrtf(n2 + 1e-8f));
+      if (valid) {
+        if (last) out[(size_t)b * JO + t] = v;
+        else vs[t] = v;
+      }
+    }
+    __syncthreads();
+    if (!last) {
+      for (int p = tid; p < IJ; p += kThreads) {
+        const int j = p % J;
+        const float4* up = reinterpret_cast<const float4*>(ub + (size_t)p * O);
+        const float4* vp = reinterpret_cast<const float4*>(vs + (size_t)j * O);
+        float acc = 0.f;
+#pragma unroll
+        for (int q = 0; q < O / 4; ++q) {
+          const float4 a = __ldg(up + q);
+          const float4 c = vp[q];
+          acc = fmaf(a.x, c.x, fmaf(a.y, c.y, fmaf(a.z, c.z, fmaf(a.w, c.w, acc))));
+        }
+        bl[p] += acc;
+      }
+      __syncthreads();
+    }
+  }
+}
+
+template <int O>
+cudaError_t launch_votes(const float* u, float* out, int B, int I, int J,
+                         int iters, cudaStream_t stream) {
+  const size_t smem = votes_smem_bytes(I, J, O);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        routing_votes_fwd_kernel<O>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  routing_votes_fwd_kernel<O><<<B, kThreads, smem, stream>>>(u, out, I, J,
+                                                             iters);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -233,6 +344,37 @@ int capsule_routing_fwd(const void* x, const void* w, void* out, int B, int I,
   switch (O) {
     case 16: e = launch<16>(xf, wf, of, B, I, J, iters, st); break;
     case 32: e = launch<32>(xf, wf, of, B, I, J, iters, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)e;
+}
+
+size_t capsule_routing_votes_smem_bytes(int I, int J, int O) {
+  return votes_smem_bytes(I, J, O);
+}
+
+// x [B, I, L], w [J, O, L], votes scratch [B, I, J, O], out [B, J, O]; all
+// float32, contiguous and 16-byte aligned, on `device`. Two launches on
+// `stream`: the vote product, then the routing. Returns the CUDA error code
+// (0 = success).
+int capsule_routing_votes_fwd(const void* x, const void* w, void* votes,
+                              void* out, int B, int I, int L, int J, int O,
+                              int iters, int device, void* stream) {
+  if (B <= 0 || I <= 0 || L <= 0 || J <= 0 || iters <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* u = static_cast<float*>(votes);
+  // u [B*I, J*O] = x [B*I, L] . w[J*O, L]^T
+  e = capsule_gemm::gemm_f32(static_cast<const float*>(x),
+                             static_cast<const float*>(w), u, B * I, J * O, L,
+                             L, 1, 1, L, (long long)J * O, st);
+  if (e != cudaSuccess) return (int)e;
+  float* of = static_cast<float*>(out);
+  switch (O) {
+    case 16: e = launch_votes<16>(u, of, B, I, J, iters, st); break;
+    case 32: e = launch_votes<32>(u, of, B, I, J, iters, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)e;

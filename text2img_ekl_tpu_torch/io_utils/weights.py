@@ -1,13 +1,15 @@
-"""Generator weights across frameworks.
+"""Generator and discriminator weights across frameworks.
 
-``jax_generator_to_state_dict`` moves the JAX package's generator
-variables (flax ``{'params', 'batch_stats'}`` as numpy arrays, e.g. after
-``jax.device_get``) into this package's ``state_dict``; the keys are the
-reference ``model.py`` netG keys, as ``text2img_ekl_tpu.io_utils.
-torch_export.flax_generator_to_torch`` writes them (without the
-``num_batches_tracked`` counters, which the port's BatchNorm does not
-keep). ``load_pth_generator`` reads a reference ``netG_*.pth`` or a file
-this package wrote with ``torch.save(G.state_dict(), path)``.
+``jax_generator_to_state_dict`` and ``jax_joint_d_to_state_dict`` move the
+JAX package's variables (flax ``{'params', 'batch_stats'}`` as numpy
+arrays, e.g. after ``jax.device_get``) into this package's ``state_dict``;
+the keys are the reference ``model.py`` netG and netD keys, as
+``text2img_ekl_tpu.io_utils.torch_export.flax_generator_to_torch`` and
+``flax_joint_d_to_torch`` write them (without the ``num_batches_tracked``
+counters, which the port's BatchNorm does not keep).
+``load_pth_generator`` and ``load_pth_discriminator`` read a reference
+``netG_*.pth`` / ``netD<i>.pth`` or a file this package wrote with
+``torch.save(module.state_dict(), path)``.
 
 The key mapping is written out here: the JAX package's own mapping lives
 in a package whose import pulls in JAX.
@@ -99,6 +101,91 @@ def jax_generator_to_state_dict(
     return sd
 
 
+# Reference JOINT_D_NET layout (model.py:918-977, 1054-1121): img_code_s16
+# is Sequential(conv, lrelu, conv, BN, lrelu, conv, BN, lrelu, conv, BN,
+# lrelu), so its convs sit at 0, 2, 5, 8 and its BNs at 3, 6, 9.
+_ENC_CONV_IX = (0, 2, 5, 8)
+_ENC_BN_IX = (None, 3, 6, 9)
+_SQUEEZE = {64: (), 128: ('img_code_s32_1',)}
+
+
+def _joint_d_key(mods: Tuple[str, ...], leaf: str, imsize: int) -> str:
+    """Flax JointDNet module path + leaf -> reference netD key."""
+    top = mods[0]
+    param = 'weight' if leaf == 'kernel' else _BN_LEAF.get(leaf, leaf)
+    if top == 'tower':
+        sub, inner = mods[1], mods[2]
+        if sub == 'encode16':
+            if inner.startswith('Conv4x4s2'):
+                return 'img_code_s16.0.weight'
+            k = int(inner.split('_')[1]) + 1   # DownBlock_k: the k+1-th conv
+            if mods[3].startswith('Conv'):
+                return 'img_code_s16.%d.weight' % _ENC_CONV_IX[k]
+            return 'img_code_s16.%d.%s' % (_ENC_BN_IX[k], param)
+        if sub.startswith('downs_'):
+            scope = 'img_code_s%d' % (32 << int(sub.split('_')[1]))
+        elif sub.startswith('squeezes_'):
+            scope = _SQUEEZE[imsize][int(sub.split('_')[1])]
+        else:
+            raise KeyError('no mapping for %s' % '/'.join(mods))
+        return '%s.%d.%s' % (scope, 0 if inner.startswith('Conv') else 1,
+                             param)
+    if top == 'jointConv':
+        return 'jointConv.%d.%s' % (
+            0 if mods[1].startswith('Conv') else 1, param)
+    if top in ('logits', 'uncond_logits'):
+        return '%s.0.%s' % (top, param)
+    if top == 'fc_ac':
+        return 'fc_ac.%s' % param
+    if top == 'fc_ac_cap':
+        return 'fc_ac_cap.0.weight'
+    raise KeyError('no mapping for %s' % '/'.join(mods))
+
+
+def jax_joint_d_to_state_dict(variables: Mapping[str, Any],
+                              imsize: int) -> Dict[str, torch.Tensor]:
+    """Flax JointDNet variables -> state_dict. The linear class head's
+    kernel is permuted from the NHWC flatten of the 4x4 code (s*C + c) to
+    the NCHW one (c*16 + s) that the port and the reference use."""
+    if imsize not in _SQUEEZE:
+        raise NotImplementedError('JointDNet at %d px is not ported yet: '
+                                  'ROADMAP.md M12' % imsize)
+    sd: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(variables):
+        mods, leaf = path[1:-1], path[-1]
+        key = _joint_d_key(mods, leaf, imsize)
+        if key in sd:
+            raise ValueError('duplicate key %s from %s' % (key, path))
+        if mods[0] == 'fc_ac' and leaf == 'kernel':
+            a = np.asarray(value, np.float32)      # [16*C, out]
+            cs, out = a.shape
+            sd[key] = torch.tensor(a.reshape(16, cs // 16, out)
+                                   .transpose(1, 0, 2).reshape(cs, out).T)
+        else:
+            sd[key] = _port_value(leaf, value)
+    return sd
+
+
+def _read_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    sd = torch.load(path, map_location='cpu', weights_only=True)
+    if not isinstance(sd, Mapping):
+        raise ValueError('%s holds a %s, not a state_dict'
+                         % (path, type(sd).__name__))
+    out = {}
+    for k, v in sd.items():
+        if k.endswith('num_batches_tracked'):
+            continue
+        out[k[len('module.'):] if k.startswith('module.') else k] = v
+    return out
+
+
+def load_pth_discriminator(path: str) -> Dict[str, torch.Tensor]:
+    """A reference netD<i> ``.pth`` (``module.`` prefixes and
+    ``num_batches_tracked`` counters dropped) or a state_dict this package
+    saved -> state_dict for ``load_state_dict(strict=True)``."""
+    return _read_state_dict(path)
+
+
 def load_pth_generator(path: str) -> Dict[str, torch.Tensor]:
     """A reference netG ``.pth`` (DataParallel ``module.`` prefixes and
     BatchNorm ``num_batches_tracked`` counters dropped) or a state_dict
@@ -110,13 +197,4 @@ def load_pth_generator(path: str) -> Dict[str, torch.Tensor]:
             'package); the port loads .pth state_dicts only. Export it with '
             'text2img_ekl_tpu.io_utils.torch_export.save_torch_generator, or '
             'see ROADMAP.md (orbax NET_G load).' % path)
-    sd = torch.load(path, map_location='cpu', weights_only=True)
-    if not isinstance(sd, Mapping):
-        raise ValueError('%s holds a %s, not a state_dict'
-                         % (path, type(sd).__name__))
-    out = {}
-    for k, v in sd.items():
-        if k.endswith('num_batches_tracked'):
-            continue
-        out[k[len('module.'):] if k.startswith('module.') else k] = v
-    return out
+    return _read_state_dict(path)

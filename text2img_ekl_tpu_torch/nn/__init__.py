@@ -1,1 +1,1 @@
-"""Generator building blocks and conditioning networks."""
+"""Generator and discriminator building blocks and conditioning networks."""

@@ -1,2 +1,2 @@
-"""Capsule routing: plain PyTorch (``capsule``) and the K1 kernel wrapper
-(``capsule_cuda``)."""
+"""Capsule routing: plain PyTorch (``capsule``) and the K1/K2 kernels
+behind an autograd Function (``capsule_cuda``)."""

@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels on first use.
 
-Every ``csrc/*.cu`` file of the package is compiled by ``nvcc`` for
-``sm_90a`` into ONE shared library with a plain C interface, which is
-loaded with ``ctypes``. The library lands in ``build/`` at the repository
-root (git-ignored), named by a hash of the sources and flags, so an edited
-source builds anew and an unchanged one is reused. Nothing builds at
-import time: the first kernel launch calls ``library()``.
+Each ``csrc/*.cu`` file of the package is compiled by ``nvcc`` for
+``sm_90a`` into its own shared library with a plain C interface, which is
+loaded with ``ctypes``. All the sources compile at once, one ``nvcc``
+process each. A library lands in ``build/`` at the repository root
+(git-ignored), named by the source's stem and a hash of the sources,
+headers and flags, so an edited source builds anew and an unchanged one is
+reused. Nothing builds at import time: the first kernel launch calls
+``library()``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Dict
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
@@ -24,7 +27,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 
 _lock = threading.Lock()
-_lib = None
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -47,38 +50,57 @@ def _sources():
     return srcs
 
 
-def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
+def library_paths() -> Dict[str, Path]:
+    """Source stem -> where its library lives (built or not). Every hash
+    covers the headers, which any source may include."""
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for hdr in sorted(CSRC_DIR.glob('*.cuh')):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
+    out = {}
     for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / ('libt2i_kernels_%s.so' % h.hexdigest()[:16])
+        hs = h.copy()
+        hs.update(src.name.encode())
+        hs.update(src.read_bytes())
+        out[src.stem] = BUILD_DIR / ('lib%s_%s.so' % (src.stem,
+                                                      hs.hexdigest()[:16]))
+    return out
 
 
-def build() -> Path:
-    """Compile the sources unless a library for them exists; returns its
-    path. The compiler's ptxas report (registers, shared memory, spills
-    per kernel) is kept beside it as ``.log``."""
-    so = library_path()
-    if so.exists():
-        return so
+def build() -> Dict[str, Path]:
+    """Compile every source whose library does not exist, all at once;
+    returns stem -> library path. The compiler's ptxas report (registers,
+    shared memory, spills per kernel) is kept beside each as ``.log``."""
+    paths = library_paths()
+    todo = {stem: so for stem, so in paths.items() if not so.exists()}
+    if not todo:
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name('%s.%d.tmp' % (so.name, os.getpid()))
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError('nvcc failed (%d):\n%s\n%s' % (
-            proc.returncode, ' '.join(cmd), proc.stderr))
-    so.with_suffix('.log').write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
-    return so
+    nvcc = _nvcc()
+    procs = []
+    for stem, so in todo.items():
+        tmp = so.with_name('%s.%d.tmp' % (so.name, os.getpid()))
+        cmd = [nvcc, *NVCC_FLAGS, '-o', str(tmp),
+               str(CSRC_DIR / ('%s.cu' % stem))]
+        procs.append((so, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for so, tmp, cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append('nvcc failed (%d):\n%s\n%s' % (
+                proc.returncode, ' '.join(cmd), err))
+            continue
+        so.with_suffix('.log').write_text(out + err)
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError('\n'.join(failed))
+    return paths
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    global _lib
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<stem>.cu``, built on first call."""
     with _lock:
-        if _lib is None:
-            _lib = ctypes.CDLL(str(build()))
-        return _lib
+        if stem not in _libs:
+            _libs[stem] = ctypes.CDLL(str(build()[stem]))
+        return _libs[stem]

@@ -77,8 +77,9 @@ class CapsuleLinear(nn.Module):
     uses).
 
     ``use_kernel`` routes the dynamic routing through the hand-written
-    routing kernel (``capsule_cuda.capsule_routing``), as
-    ``TPU_CAPSULE_PALLAS`` selects the Pallas kernel in the JAX package.
+    routing kernels and their backward (``capsule_cuda.capsule_routing``),
+    as ``TPU_CAPSULE_PALLAS`` selects the Pallas kernels in the JAX
+    package.
     """
 
     def __init__(self, out_capsules: int, in_length: int, out_length: int,
@@ -106,7 +107,9 @@ class CapsuleLinear(nn.Module):
                              % (self.in_length, tuple(x.shape)))
         if self.use_kernel and self.routing == 'dynamic':
             from .capsule_cuda import capsule_routing
-            return capsule_routing(x.float(), self.weight,
+            # the kernels take contiguous rows; a capsule view of a
+            # permuted feature map (the D class head) is strided
+            return capsule_routing(x.float().contiguous(), self.weight,
                                    self.num_iterations)
         return capsule_linear(x, self.weight, self.num_iterations,
                               self.routing)

@@ -1,1 +1,1 @@
-"""Sampling and the offline evaluate loop."""
+"""Losses, training state and step, sampling, and the trainer loop."""
