@@ -32,7 +32,20 @@ found; any failure raises and exits non-zero:
      check finite losses, that G and D parameters moved, and the kernel
      launches per step; time the step;
   9. one step on the card against one on the CPU at GF/DF_DIM 16, batch 4,
-     float32 (TF32 off for matmuls and cuDNN), same weights and draws.
+     float32 (TF32 off for matmuls and cuDNN), same weights and draws; once
+     as configured and once with TPU_FUSED_BN_GLU and TPU_PALLAS_DW on;
+ 10. hold K3 (the fused BN+GLU) to its plain version at every flagship
+     tail shape, bfloat16 and float32, and time both;
+ 11. hold K4 (the 3x3 conv weight gradient) to its plain version at every
+     flagship shape inside the envelope, bfloat16 and float32, and time
+     both and cuDNN's weight gradient (the yardstick; the port never calls
+     it);
+ 12. the flagship sampler with TPU_FUSED_BN_GLU on (eval mode, B=320):
+     K3's launches per call, images against the unfused sampler on the
+     same weights, both timed in turns;
+ 13. drive the training path with both switches on: train(max_steps=2) at
+     full width, the launches of all six kernels per step; then the step
+     with both switches off and on, timed in turns in this one call.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, where
@@ -43,6 +56,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -80,8 +94,31 @@ TRAIN_STEPS = 3
 # (errD_cls = ce(real) + ce(fake)); phase 3 runs one more forward and
 # backward per D; the G head runs one forward and one backward. The epoch
 # grid adds one K1-G launch per run.
-PER_STEP = {'K1-G': 1, 'K1-D': 8, 'K2-G': 1, 'K2-D': 6}
-PER_RUN = {'K1-G': 1, 'K1-D': 0, 'K2-G': 0, 'K2-D': 0}
+PER_STEP = {'K1-G': 1, 'K1-D': 8, 'K2-G': 1, 'K2-D': 6, 'K3': 0, 'K4': 0}
+PER_RUN = {'K1-G': 1, 'K1-D': 0, 'K2-G': 0, 'K2-D': 0, 'K3': 0, 'K4': 0}
+# with TPU_FUSED_BN_GLU and TPU_PALLAS_DW: K3 at the 8 BN+GLU tails of each
+# G forward (the step's and the epoch grid's); K4 at the 5 G convs whose
+# weight gradient lies inside the envelope (two ResBlocks' two convs at
+# 64 px, the stage-2 upsample conv at 128 px; the joint conv and the
+# stage-1 convs have C > 64, the toRGB convs F = 3, the D convs run at 4x4)
+SWITCHES = {'TPU_FUSED_BN_GLU': True, 'TPU_PALLAS_DW': True}
+PER_STEP_FUSED = dict(PER_STEP, K3=8, K4=5)
+PER_RUN_FUSED = dict(PER_RUN, K3=8)
+FUSED_TRAIN_STEPS = 2
+# K3's inputs at the flagship, batch 32, NCHW: the BN input of each fused
+# tail [B, 2C, H, W] and its launches per G forward
+K3_SHAPES = (((32, 1024, 8, 8), 1), ((32, 512, 16, 16), 1),
+             ((32, 256, 32, 32), 1), ((32, 128, 64, 64), 4),
+             ((32, 64, 128, 128), 1))
+# K4's inputs at the flagship: (x [B, C, H, W], F) and launches per step
+K4_SHAPES = (((32, 64, 64, 64), 128, 2), ((32, 64, 64, 64), 64, 2),
+             ((32, 64, 128, 128), 64, 1))
+# K3 vs its plain version: float32 |d| <= 1e-6 |ref| + 1e-6; bfloat16 one
+# bfloat16 ulp of the reference (both round one float32 value once)
+K3_TOL = 1e-6
+# K4 vs its plain version: |d| <= 1e-3 |ref| + 1e-4 max|ref| (float32 sums
+# over up to 524,288 terms in another order)
+K4_RTOL, K4_ATOL = 1e-3, 1e-4
 # CUDA vs CPU step (float32): metrics |d| <= 1e-3 |ref| + 1e-5; first
 # moments per tensor ||d|| <= 1e-2 ||ref|| + 1e-5 max|ref over the net|
 # (cuDNN and oneDNN sum convolutions in other orders; a LeakyReLU input
@@ -89,9 +126,10 @@ PER_RUN = {'K1-G': 1, 'K1-D': 0, 'K2-G': 0, 'K2-D': 0}
 # BatchNorm have zero gradient in exact arithmetic)
 STEP_RTOL, STEP_ATOL = 1e-3, 1e-5
 MOMENT_RTOL, MOMENT_ATOL = 1e-2, 1e-5
-# the card's peaks (H100 SXM data sheet): float32 outside the tensor cores
-# and device-memory bandwidth
-F32_FLOPS, HBM_BYTES = 67e12, 3.35e12
+# the card's peaks (H100 SXM data sheet): float32 outside the tensor cores,
+# dense bfloat16 on the tensor cores (the bound of a bf16 kernel: the TPU
+# kernels contract bf16 on the matrix unit) and device-memory bandwidth
+F32_FLOPS, BF16_FLOPS, HBM_BYTES = 67e12, 989e12, 3.35e12
 
 
 def _errors(out, ref, rtol, atol):
@@ -154,9 +192,9 @@ def _best_ms(fns, iters=20):
     return {name: (min(t), t) for name, t in times.items()}
 
 
-def _bound(flops, nbytes):
+def _bound(flops, nbytes, peak=F32_FLOPS):
     """(least ms, what bounds it) from operations and bytes."""
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops >= t_bytes
                                        else 'bytes')
 
@@ -196,6 +234,48 @@ def _k2_work(shape, factored):
         rev = ITERS * b * (6 * i * j * o + 6 * i * j + 6 * j * o) \
             + 4 * b * i * l * j * o
     return fwd + rev, nbytes
+
+
+def _k3_work(shape, itemsize):
+    """(flops, bytes) of one fused BN+GLU: y [B, 2C, H, W] read once, the
+    four [2C] vectors read once, out [B, C, H, W] written once; per output
+    two affines (4), the logistic (4, counting exp as one) and the product
+    (1)."""
+    b, c2 = shape[:2]
+    out = b * c2 // 2 * math.prod(shape[2:])
+    return 9 * out, itemsize * 3 * out + 4 * 4 * c2
+
+
+def _k4_work(x_shape, f, itemsize):
+    """(flops, bytes) of one 3x3 weight gradient: 2 F 9C B H W operations;
+    x and dy read once, dW (float32) written once."""
+    b, c, h, w = x_shape
+    return (2 * f * 9 * c * b * h * w,
+            itemsize * b * h * w * (c + f) + 4 * f * c * 9)
+
+
+def _pinned_kinks(nets, leaky_relu, masks, replay):
+    """Forward hooks on every LeakyReLU of ``nets``. Recording, they append
+    to ``masks`` which inputs of each call were positive; replaying, each
+    call takes the recorded branch (x or 0.2 x), so that a second run goes
+    through the same pieces of the piecewise-linear networks. An input
+    within rounding of zero takes the other slope under another summation
+    order (ROADMAP F10), which moves a whole receptive field's gradient.
+    Returns (hook handles, [flips pinned])."""
+    import torch
+    calls, flips = iter(masks), [0]
+
+    def hook(module, args, out):
+        x = args[0]
+        if not replay:
+            masks.append(x > 0)
+            return None
+        mask = next(calls).to(x.device)
+        flips[0] += int((mask != (x > 0)).sum())
+        return torch.where(mask, x, 0.2 * x).to(module.dtype)
+
+    return [m.register_forward_hook(hook) for net in nets
+            for m in net.modules() if isinstance(m, leaky_relu)], flips
 
 
 def _capsule_inputs(rng, shape, dev):
@@ -251,7 +331,9 @@ def main() -> int:
     import numpy as np
     from text2img_ekl_tpu_torch.config import cfg_from_file
     from text2img_ekl_tpu_torch.models.generator import build_generator
+    from text2img_ekl_tpu_torch.nn.blocks import LeakyReLU
     from text2img_ekl_tpu_torch.ops import _build
+    from text2img_ekl_tpu_torch.ops import bn_glu, conv_dw
     from text2img_ekl_tpu_torch.ops import capsule_cuda as cc
     from text2img_ekl_tpu_torch.ops.capsule import capsule_linear
     from text2img_ekl_tpu_torch.ops.capsule_cuda import capsule_routing
@@ -271,6 +353,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device('cuda')
+    kernels = dict(cc.KERNELS, K3=bn_glu.bn_glu_kernel,
+                   K4=conv_dw.dw3x3_kernel)
+
+    def reset_launches():
+        for fn in kernels.values():
+            fn.launches = 0
+
+    def launches():
+        return {name: fn.launches for name, fn in kernels.items()}
 
     # 1. build
     t0 = time.perf_counter()
@@ -298,7 +389,7 @@ def main() -> int:
                 (out_caps, out_len, 8), dtype=np.float32))
         return x, w.to(dev)
 
-    err = {name: 0.0 for name in cc.KERNELS}
+    err = {name: 0.0 for name in kernels}
     with torch.no_grad():
         for shape, weights in ((FLAGSHIP, 'N(0,1)'), (FLAGSHIP, 'init'),
                                (RAGGED, 'N(0,1)')):
@@ -329,12 +420,12 @@ def main() -> int:
     cfg.TRAIN.NET_G = net_g
     trainer = CondGANTrainer(cfg, os.path.join(WORK, 'eval_run'),
                              device='cuda')
-    cc.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     save_dir = trainer.evaluate(max_batches=BATCHES)
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
-    eval_launches = cc.launches()
+    eval_launches = launches()
     pngs = []
     for d, _, files in os.walk(save_dir):
         pngs += [os.path.join(d, f) for f in files if f.endswith('.png')]
@@ -344,7 +435,7 @@ def main() -> int:
     print('phase 3 evaluate: launches %s for %d sampler calls, %d PNGs '
           '(want %d) of shape %s in %.2f s'
           % (eval_launches, BATCHES, len(pngs), want, sorted(shapes), eval_s))
-    if eval_launches != {'K1-G': BATCHES, 'K1-D': 0, 'K2-G': 0, 'K2-D': 0}:
+    if eval_launches != dict(PER_RUN, **{'K1-G': BATCHES}):
         raise AssertionError('K1-G did not run once per sampler call')
     if len(pngs) != want or shapes != {(cfg.imsize, cfg.imsize, 3)}:
         raise AssertionError('evaluate wrote the wrong PNGs')
@@ -531,12 +622,12 @@ def main() -> int:
     trainer = CondGANTrainer(tcfg, os.path.join(WORK, 'train_run'),
                              device='cuda')
     initial = create_train_state(tcfg, 'cpu', seed=0)
-    cc.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     tstate = trainer.train(max_steps=TRAIN_STEPS)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    train_launches = cc.launches()
+    train_launches = launches()
     metrics = trainer.last_metrics
     finite = all(np.isfinite(v) for v in metrics.values())
     moved = {}
@@ -596,43 +687,308 @@ def main() -> int:
                  / step_ms))
     del trainer, tstate, initial, batch
 
-    # 9. one step on the card against one on the CPU, float32
-    scfg = copy.deepcopy(tcfg)
-    scfg.GAN.GF_DIM = scfg.GAN.DF_DIM = 16
-    scfg.TRAIN.BATCH_SIZE = 4
-    scfg.TPU_COMPUTE_DTYPE = 'float32'
-    results = {}
-    for device in ('cuda', 'cpu'):
-        st = create_train_state(scfg, device, seed=0)
-        batch, draws = _step_batch(np.random.default_rng(5), scfg, device)
-        m, _ = make_train_step(scfg)(st, batch, 0, draws)
-        names = {p: n for n, p in st.G.named_parameters()}
-        moments = [{names[p]: s['exp_avg'].cpu()
-                    for p, s in st.g_opt.state.items()}]
-        for D, opt in zip(st.Ds, st.d_opts):
-            names = {p: n for n, p in D.named_parameters()}
-            moments.append({names[p]: s['exp_avg'].cpu()
-                            for p, s in opt.state.items()})
-        results[device] = ({k: float(v) for k, v in m.items()}, moments)
-    (cm, cmom), (pm, pmom) = results['cuda'], results['cpu']
-    worst_metric = max(abs(cm[k] - v) / (STEP_RTOL * abs(v) + STEP_ATOL)
-                       for k, v in pm.items())
-    worst_moment = 0.0
-    for got, want_m in zip(cmom, pmom):
-        net_max = max(float(v.abs().max()) for v in want_m.values())
-        for k, v in want_m.items():
-            e = float(torch.linalg.vector_norm(got[k] - v))
-            worst_moment = max(worst_moment, e / (
-                MOMENT_RTOL * float(torch.linalg.vector_norm(v))
-                + MOMENT_ATOL * net_max))
-    print('phase 9 CUDA vs CPU step (GF/DF 16, batch 4, float32): metrics '
-          'errD %.6f vs %.6f, errG %.6f vs %.6f; worst metric at %.3f of '
-          'its bound (|d| <= %.0e |ref| + %.0e), worst Adam first moment at '
-          '%.3f of its bound (||d|| <= %.0e ||ref|| + %.0e max|ref|)'
-          % (cm['errD'], pm['errD'], cm['errG'], pm['errG'], worst_metric,
-             STEP_RTOL, STEP_ATOL, worst_moment, MOMENT_RTOL, MOMENT_ATOL))
-    if worst_metric > 1 or worst_moment > 1:
-        raise AssertionError('the CUDA step disagrees with the CPU step')
+    # 9. one step on the card against one on the CPU, float32, as
+    #    configured and with both kernel switches on; the CPU step takes the
+    #    card step's LeakyReLU branches (F10)
+    for switches in ({}, SWITCHES):
+        scfg = copy.deepcopy(tcfg)
+        scfg.GAN.GF_DIM = scfg.GAN.DF_DIM = 16
+        scfg.TRAIN.BATCH_SIZE = 4
+        scfg.TPU_COMPUTE_DTYPE = 'float32'
+        for k, v in switches.items():
+            setattr(scfg, k, v)
+        results, masks = {}, []
+        for device in ('cuda', 'cpu'):
+            st = create_train_state(scfg, device, seed=0)
+            batch, draws = _step_batch(np.random.default_rng(5), scfg, device)
+            hooks, flips = _pinned_kinks(st.Ds, LeakyReLU, masks,
+                                         replay=device == 'cpu')
+            reset_launches()
+            m, _ = make_train_step(scfg)(st, batch, 0, draws)
+            for h in hooks:
+                h.remove()
+            if device == 'cuda':
+                torch.cuda.synchronize()
+                step_launches = launches()
+            names = {p: n for n, p in st.G.named_parameters()}
+            moments = [{names[p]: s['exp_avg'].cpu()
+                        for p, s in st.g_opt.state.items()}]
+            for D, opt in zip(st.Ds, st.d_opts):
+                names = {p: n for n, p in D.named_parameters()}
+                moments.append({names[p]: s['exp_avg'].cpu()
+                                for p, s in opt.state.items()})
+            results[device] = ({k: float(v) for k, v in m.items()}, moments)
+        (cm, cmom), (pm, pmom) = results['cuda'], results['cpu']
+        worst_metric = max(abs(cm[k] - v) / (STEP_RTOL * abs(v) + STEP_ATOL)
+                           for k, v in pm.items())
+        worst_moment = 0.0
+        for got, want_m in zip(cmom, pmom):
+            net_max = max(float(v.abs().max()) for v in want_m.values())
+            for k, v in want_m.items():
+                e = float(torch.linalg.vector_norm(got[k] - v))
+                worst_moment = max(worst_moment, e / (
+                    MOMENT_RTOL * float(torch.linalg.vector_norm(v))
+                    + MOMENT_ATOL * net_max))
+        # at GF_DIM 16 the envelope holds 7 G convs: stage 1's 32 and 64 px
+        # up-convs besides the stage-2 ResBlock and upsample convs
+        want_step = dict(PER_STEP, K3=8, K4=7) if switches else PER_STEP
+        print('phase 9 CUDA vs CPU step (GF/DF 16, batch 4, float32, '
+              'switches %s): metrics errD %.6f vs %.6f, errG %.6f vs %.6f; '
+              'worst metric at %.3f of its bound (|d| <= %.0e |ref| + %.0e), '
+              'worst Adam first moment at %.3f of its bound (||d|| <= %.0e '
+              '||ref|| + %.0e max|ref|); %d LeakyReLU inputs of %d calls '
+              'pinned to the card\'s branch; card launches %s (want %s)'
+              % (switches or 'off', cm['errD'], pm['errD'], cm['errG'],
+                 pm['errG'], worst_metric, STEP_RTOL, STEP_ATOL, worst_moment,
+                 MOMENT_RTOL, MOMENT_ATOL, flips[0], len(masks),
+                 step_launches, want_step))
+        if worst_metric > 1 or worst_moment > 1:
+            raise AssertionError('the CUDA step disagrees with the CPU step')
+        if step_launches != want_step:
+            raise AssertionError('the CUDA step did not launch the kernels '
+                                 'as expected')
+
+    # 10. K3 against its plain version at the flagship's tail shapes
+    k3 = {}
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32):
+            for shape, per_fwd in K3_SHAPES:
+                c2 = shape[1]
+                y = torch.randn(shape, device=dev).to(dtype)
+                mean = 0.3 * torch.randn(c2, device=dev)
+                var = torch.rand(c2, device=dev) + 0.5
+                scale = 1.0 + 0.1 * torch.randn(c2, device=dev)
+                bias = 0.1 * torch.randn(c2, device=dev)
+                kk, bb = bn_glu.fold_affine(mean, var, scale, bias)
+                before = bn_glu.bn_glu_kernel.launches
+                out = bn_glu.bn_glu_kernel(y, kk, bb)
+                ref = bn_glu.bn_glu_reference(y, mean, var, scale, bias)
+                torch.cuda.synchronize()
+                if bn_glu.bn_glu_kernel.launches != before + 1:
+                    raise AssertionError('K3 did not launch')
+                outf, reff = out.float(), ref.float()
+                diff = (outf - reff).abs()
+                if dtype == torch.float32:
+                    ok = bool((diff <= K3_TOL * reff.abs() + K3_TOL).all())
+                    what = '|d| <= %.0e |ref| + %.0e' % (K3_TOL, K3_TOL)
+                else:  # one bfloat16 ulp: 2^(exponent - 7)
+                    ulp = torch.exp2(torch.floor(torch.log2(
+                        reff.abs().clamp_min(1e-30))) - 7)
+                    ok = bool((diff <= ulp).all())
+                    what = '|d| <= one bfloat16 ulp of ref'
+                big = reff.abs() > 1e-3 * float(reff.abs().max())
+                rel = float((diff[big] / reff.abs()[big]).max())
+                best = _best_ms({
+                    'kernel': lambda: bn_glu.bn_glu_kernel(y, kk, bb),
+                    'plain': lambda: bn_glu.bn_glu_reference(
+                        y, mean, var, scale, bias)})
+                flops, nbytes = _k3_work(shape, y.element_size())
+                bound_ms, bound_by = _bound(
+                    flops, nbytes,
+                    BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+                k3[(dtype, shape)] = (best['kernel'][0], best['plain'][0],
+                                      bound_ms, bound_by, per_fwd)
+                print('phase 10 K3 %s %s -> %s: max_abs_err %.3e, '
+                      'max_rel_err %.3e; bound %s: %s; kernel %.4f ms, plain '
+                      '%.4f ms (best of 2 x 20), bound %.4f ms (%s)'
+                      % (str(dtype).split('.')[-1], list(shape),
+                         list(out.shape), float(diff.max()), rel, what,
+                         'ok' if ok else 'FAIL', best['kernel'][0],
+                         best['plain'][0], bound_ms, bound_by))
+                if not ok:
+                    raise AssertionError('K3 disagrees with its plain '
+                                         'version')
+                if dtype == torch.bfloat16:
+                    err['K3'] = max(err['K3'], float(diff.max()))
+                del y, out, ref
+    for dtype in (torch.bfloat16, torch.float32):
+        tot = [sum(k3[(dtype, sh)][i] * n for sh, n in K3_SHAPES)
+               for i in range(3)]
+        print('phase 10 K3 per G forward (8 launches), %s: kernel %.4f ms, '
+              'plain %.4f ms, bound %.4f ms'
+              % (str(dtype).split('.')[-1], *tot))
+        if dtype == torch.bfloat16:
+            timing['K3'] = (tot[0], tot[1], tot[2], max(
+                k3[(dtype, sh)][2:4] for sh, _ in K3_SHAPES)[1], None,
+                            'per G forward: %s' % ', '.join(
+                                '%d x %s' % (n, list(sh))
+                                for sh, n in K3_SHAPES))
+
+    # 11. K4 against its plain version and cuDNN's weight gradient
+    k4 = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for x_shape, f, per_step in K4_SHAPES:
+            b_, c_, h_, w_ = x_shape
+            x = torch.randn(x_shape, device=dev).to(dtype)
+            dy = torch.randn((b_, f, h_, w_), device=dev).to(dtype)
+            wgt = torch.randn((f, c_, 3, 3), device=dev).to(dtype)
+            before = conv_dw.dw3x3_kernel.launches
+            out = conv_dw.dw3x3(x, dy)
+            ref = conv_dw.dw3x3_reference(x, dy)
+            torch.cuda.synchronize()
+            if conv_dw.dw3x3_kernel.launches != before + 1:
+                raise AssertionError('K4 did not launch')
+            max_abs, max_rel, scale, ok = _errors(out, ref, K4_RTOL, K4_ATOL)
+
+            def library():
+                return torch.ops.aten.convolution_backward(
+                    dy, x, wgt, None, [1, 1], [1, 1], [1, 1], False, [0, 0],
+                    1, [False, True, False])[1]
+
+            lib = library().float()
+            lib_abs, _, _, _ = _errors(lib, ref, K4_RTOL, K4_ATOL)
+            best = _best_ms({
+                'kernel': lambda: conv_dw.dw3x3_kernel(x, dy),
+                'plain': lambda: conv_dw.dw3x3_reference(x, dy),
+                'library': library}, iters=10)
+            flops, nbytes = _k4_work(x_shape, f, x.element_size())
+            bound_ms, bound_by = _bound(
+                flops, nbytes,
+                BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+            k4[(dtype, x_shape, f)] = (best['kernel'][0], best['plain'][0],
+                                       bound_ms, best['library'][0], bound_by)
+            print('phase 11 K4 %s x %s dy %s: max|ref| %.3e, max_abs_err '
+                  '%.3e, max_rel_err %.3e (cuDNN wgrad max_abs_err %.3e); '
+                  'bound |d| <= %.0e |ref| + %.0e max|ref|: %s; kernel %.4f '
+                  'ms, plain %.4f ms, cuDNN wgrad %.4f ms (best of 2 x 10), '
+                  'bound %.4f ms (%s)'
+                  % (str(dtype).split('.')[-1], list(x_shape),
+                     [b_, f, h_, w_], scale, max_abs, max_rel, lib_abs,
+                     K4_RTOL, K4_ATOL, 'ok' if ok else 'FAIL',
+                     best['kernel'][0], best['plain'][0],
+                     best['library'][0], bound_ms, bound_by))
+            if not ok:
+                raise AssertionError('K4 disagrees with its plain version')
+            if dtype == torch.bfloat16:
+                err['K4'] = max(err['K4'], max_abs)
+            del x, dy, out, ref, lib
+    for dtype in (torch.bfloat16, torch.float32):
+        tot = [sum(k4[(dtype, xs, f)][i] * n for xs, f, n in K4_SHAPES)
+               for i in range(4)]
+        print('phase 11 K4 per step (5 launches), %s: kernel %.4f ms, plain '
+              '%.4f ms, bound %.4f ms, cuDNN wgrad %.4f ms'
+              % (str(dtype).split('.')[-1], *tot))
+        if dtype == torch.bfloat16:
+            timing['K4'] = (tot[0], tot[1], tot[2], max(
+                (k4[(dtype, xs, f)][2], k4[(dtype, xs, f)][4])
+                for xs, f, _ in K4_SHAPES)[1], tot[3],
+                            'per step: %s' % ', '.join(
+                                '%d x x %s dy F=%d' % (n, list(xs), f)
+                                for xs, f, n in K4_SHAPES))
+
+    # 12. the sampler with K3, against the unfused sampler
+    fcfg = copy.deepcopy(cfg)
+    fcfg.TPU_FUSED_BN_GLU = True
+    samplers = {}
+    for name, c in (('off', cfg), ('on', fcfg)):
+        g = build_generator(c, train_flag=False)
+        g.load_state_dict(state, strict=True)
+        samplers[name] = g.to(dev).eval()
+    b, c = cfg.TRAIN.BATCH_SIZE, 10
+    noise = torch.randn((c, b, cfg.GAN.Z_DIM), device=dev)
+    emb = torch.randn((c, b, cfg.TEXT.DIMENSION), device=dev) * 0.03
+    gens = {name: torch.Generator(device=dev) for name in samplers}
+
+    def sampler(name):
+        return caption_sample(samplers[name], noise, emb,
+                              generator=gens[name])
+
+    reset_launches()
+    out = sampler('on')
+    torch.cuda.synchronize()
+    sampler_launches = launches()
+    want = dict(PER_RUN, **{'K1-G': 1, 'K3': 8})
+    if tuple(out.shape) != (c, b, cfg.imsize, cfg.imsize, 3) or \
+            sampler_launches != want:
+        raise AssertionError('fused sampler: output %s, launches %s (want '
+                             '%s)' % (tuple(out.shape), sampler_launches,
+                                      want))
+    flat = dict(noise=noise.reshape(c * b, -1), sen=emb.reshape(c * b, -1),
+                cls_prior=torch.randn((c * b, cfg.GAN.MANIFD_DIM),
+                                      device=dev),
+                eps=torch.randn((c * b, cfg.GAN.EMBEDDING_DIM), device=dev))
+    imgs = {name: sample_images(g, flat['noise'], flat['sen'],
+                                cls_prior=flat['cls_prior'], eps=flat['eps'])
+            for name, g in samplers.items()}
+    diffs = [(a - b_).abs() for a, b_ in zip(imgs['on'], imgs['off'])]
+    fin = all(bool(torch.isfinite(i).all()) for i in imgs['on'])
+    d_mean = max(float(d.mean()) for d in diffs)
+    d_max = max(float(d.max()) for d in diffs)
+    best = _best_ms({'off': lambda: sampler('off'),
+                     'on': lambda: sampler('on')}, iters=10)
+    print('phase 12 sampler with TPU_FUSED_BN_GLU (%s, %d images per call): '
+          'launches %s; images vs the unfused sampler on the same weights: '
+          'mean diff %.3e (bound 1e-2), max %.3e (bound 1e-1), finite %s; '
+          '%.3f ms per call fused vs %.3f ms unfused (best of 2 x 10; all: '
+          'fused %s unfused %s)'
+          % (cfg.TPU_COMPUTE_DTYPE, b * c, sampler_launches, d_mean, d_max,
+             fin, best['on'][0], best['off'][0],
+             ['%.3f' % t for t in best['on'][1]],
+             ['%.3f' % t for t in best['off'][1]]))
+    if not (fin and d_mean <= 1e-2 and d_max <= 0.1):
+        raise AssertionError('the fused sampler disagrees with the unfused')
+    del samplers, imgs, diffs, out
+
+    # 13. the training path with both switches on
+    fcfg = copy.deepcopy(tcfg)
+    for k, v in SWITCHES.items():
+        setattr(fcfg, k, v)
+    trainer = CondGANTrainer(fcfg, os.path.join(WORK, 'train_fused'),
+                             device='cuda')
+    reset_launches()
+    t0 = time.perf_counter()
+    fstate = trainer.train(max_steps=FUSED_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    fused_launches = launches()
+    metrics = trainer.last_metrics
+    want = {k: FUSED_TRAIN_STEPS * PER_STEP_FUSED[k] + PER_RUN_FUSED[k]
+            for k in PER_STEP_FUSED}
+    finite = all(np.isfinite(v) for v in metrics.values())
+    print('phase 13 train(max_steps=%d) with %s, %s compute, batch %d: '
+          '%.2f s; launches %s (want %s: per step %s, per run %s); finite '
+          'losses %s (errD %.4f errG %.4f)'
+          % (FUSED_TRAIN_STEPS, SWITCHES, fcfg.TPU_COMPUTE_DTYPE,
+             fcfg.TRAIN.BATCH_SIZE, fused_s, fused_launches, want,
+             PER_STEP_FUSED, PER_RUN_FUSED, finite, metrics['errD'],
+             metrics['errG']))
+    if fused_launches != want:
+        raise AssertionError('the training path with both switches did not '
+                             'launch the kernels as expected')
+    if not finite or len(metrics) < 14:
+        raise AssertionError('training metrics %s' % metrics)
+    batch = trainer._device_batch(next(iter(trainer.data_loader)))
+    runs = {'off': (make_train_step(tcfg),
+                    create_train_state(tcfg, 'cuda', seed=0)),
+            'on': (make_train_step(fcfg), fstate)}
+    seed = [2000]
+
+    def five_steps(name):
+        fn, st = runs[name]
+        for _ in range(5):
+            seed[0] += 1
+            fn(st, batch, seed[0])
+
+    step_times = {'off': [], 'on': []}
+    for name in ('off', 'on'):
+        five_steps(name)  # warm up
+    torch.cuda.synchronize()
+    for name in ('off', 'on', 'on', 'off'):
+        t0 = time.perf_counter()
+        five_steps(name)
+        torch.cuda.synchronize()
+        step_times[name].append((time.perf_counter() - t0) / 5 * 1e3)
+    print('phase 13 train step on %s, %s compute, batch %d, in turns (off, '
+          'on, on, off; 5 steps each, host clock with synchronize): switches '
+          'off %.2f ms (all %s), on %.2f ms (all %s)'
+          % (card, fcfg.TPU_COMPUTE_DTYPE, fcfg.TRAIN.BATCH_SIZE,
+             min(step_times['off']), ['%.2f' % t for t in step_times['off']],
+             min(step_times['on']), ['%.2f' % t for t in step_times['on']]))
+    for name in ('K3', 'K4'):
+        print('phase 13 %s: %s at %.4f ms = %.1f%% of a step with both '
+              'switches' % (name, timing[name][5], timing[name][0],
+                            100 * timing[name][0] / min(step_times['on'])))
+    del trainer, fstate, runs, batch
 
     shutil.rmtree(WORK, ignore_errors=True)
     bad = sorted(m for m in sys.modules
@@ -644,19 +1000,26 @@ def main() -> int:
     sources = {'K1-G': ('capsule_routing.cu', 'capsule_pallas.py:32'),
                'K1-D': ('capsule_routing.cu', 'capsule_pallas.py:32'),
                'K2-G': ('capsule_routing_bwd.cu', 'capsule_pallas.py:114'),
-               'K2-D': ('capsule_routing_bwd.cu', 'capsule_pallas.py:114')}
+               'K2-D': ('capsule_routing_bwd.cu', 'capsule_pallas.py:114'),
+               'K3': ('bn_glu.cu', 'bn_glu.py:48'),
+               'K4': ('conv3x3_dw.cu', 'conv_dw.py:136')}
     record = []
-    for name, fn in cc.KERNELS.items():
-        ms, plain_ms, (flops, nbytes), shape = timing[name]
-        bound_ms, bound_by = _bound(flops, nbytes)
+    for name, fn in kernels.items():
+        if name in cc.KERNELS:
+            ms, plain_ms, (flops, nbytes), shape = timing[name]
+            bound_ms, bound_by = _bound(flops, nbytes)
+            library_ms, shape, n = None, list(shape), train_launches[name]
+        else:  # totals over the flagship's launches per G forward / step
+            ms, plain_ms, bound_ms, bound_by, library_ms, shape = timing[name]
+            n = fused_launches[name]
         record.append({
             'name': '%s %s' % (name, fn.__name__), 'route': 'cuda',
             'source': 'text2img_ekl_tpu_torch/csrc/%s' % sources[name][0],
             'replaces': 'text2img_ekl_tpu/ops/%s' % sources[name][1],
-            'launches': train_launches[name], 'max_abs_err': err[name],
+            'launches': n, 'max_abs_err': err[name],
             'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
-            'bound_by': bound_by, 'library_ms': None,
-            'shape': list(shape)})
+            'bound_by': bound_by, 'library_ms': library_ms,
+            'shape': shape})
     print(card)
     print(json.dumps({'kernels': record}))
     print(json.dumps({'ok': True, 'device': {

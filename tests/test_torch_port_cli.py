@@ -117,6 +117,23 @@ def test_evaluate_stops_at_sample_num(tmp_path):
     assert sum('_nid2.png' in f for f in files) == 10
 
 
+def test_eval_trainer_honours_the_kernel_switches(tmp_path):
+    """An eval-mode trainer built from a config with TPU_FUSED_BN_GLU runs
+    the generator's eight BN+GLU tails fused, as the JAX package does; the
+    unfused generator's file loads into it (strict)."""
+    from text2img_ekl_tpu_torch.nn.blocks import FusedBatchNormGLU
+    from text2img_ekl_tpu_torch.train.trainer import CondGANTrainer
+    cfg = _tiny_cfg(tmp_path)
+    cfg.TPU_FUSED_BN_GLU = True
+    trainer = CondGANTrainer(cfg, str(tmp_path / 'out'),
+                             data_loader=_loader(cfg, 2), device='cpu')
+    assert sum(isinstance(m, FusedBatchNormGLU)
+               for m in trainer.G.modules()) == 8
+    save_dir = trainer.evaluate(max_batches=1)
+    files = os.listdir(os.path.join(save_dir, 'single_samples', 'synthetic'))
+    assert len(files) == 2 * 10
+
+
 def test_cli_refuses_what_is_not_ported_or_not_there(tmp_path):
     import main_torch
     if not torch.cuda.is_available():

@@ -1,4 +1,4 @@
-"""The port's capsule-routing kernels on the card (marker ``cuda``).
+"""The port's kernels on the card (marker ``cuda``).
 
 Run on a machine with an NVIDIA H100:
 ``pytest --noconftest -m cuda tests/test_torch_port_cuda.py`` (the
@@ -20,6 +20,13 @@ over every sample and input capsule) and the softmax pullback subtracts
 nearly equal row sums, so float32 orders differ by more than the forward.
 The JAX package's own bar for its fused backward is 2e-2 mean relative
 error (tests/test_capsule_pallas_bwd.py).
+
+K3 (fused BN+GLU) is held to ``bn_glu_reference``: float32 at rtol/atol
+1e-6 (the same float32 arithmetic, elementwise; only the exponential's and
+the fused multiply-add's rounding differ); bfloat16 within one bfloat16
+ulp of the reference (both round one float32 value once). K4 (3x3 conv
+weight gradient) is held to ``dw3x3_reference`` at |d| <= 1e-3 |ref| + 1e-4
+max|ref|: float32 sums over B*H*W up to 524,288 terms in another order.
 """
 
 import os
@@ -29,7 +36,9 @@ import pytest
 import torch
 
 from text2img_ekl_tpu_torch.config import cfg_from_file
+from text2img_ekl_tpu_torch.ops import bn_glu
 from text2img_ekl_tpu_torch.ops import capsule_cuda as cc
+from text2img_ekl_tpu_torch.ops import conv_dw
 from text2img_ekl_tpu_torch.ops.capsule import capsule_linear
 from text2img_ekl_tpu_torch.ops.capsule_cuda import capsule_routing
 from text2img_ekl_tpu_torch.train.state import create_train_state
@@ -160,14 +169,15 @@ def test_kernels_raise_on_what_they_do_not_take(card):
             capsule_routing(torch.zeros((1, 600, 8), device=card), w)
 
 
-def test_tiny_step_on_the_card_matches_the_cpu(card):
-    """One training step at GF/DF_DIM 8, batch 4, float32 (TF32 off), from
-    the same seeded weights, batch and draws: every metric within 1e-3
-    relative (cuDNN and oneDNN sum convolutions in other orders), and the
-    kernels, not the plain routing, ran on the card."""
+def _tiny_step_metrics(card, **switches):
+    """One training step at GF/DF_DIM 8, batch 4, float32 (TF32 off), on the
+    CPU and on the card from the same seeded weights, batch and draws:
+    (metrics by device, the card's launches of every kernel)."""
     cfg = cfg_from_file(os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'cfg',
         'birds_2stg_splitz_cap_ca.realcls.yml'))
+    for k, v in switches.items():
+        setattr(cfg, k, v)
     cfg.GAN.GF_DIM = cfg.GAN.DF_DIM = 8
     cfg.TRAIN.BATCH_SIZE = 4
     cfg.TPU_COMPUTE_DTYPE = 'float32'
@@ -197,11 +207,159 @@ def test_tiny_step_on_the_card_matches_the_cpu(card):
 
         state = create_train_state(cfg, dev, seed=0)
         cc.reset_launches()
+        bn_glu.bn_glu_kernel.launches = conv_dw.dw3x3_kernel.launches = 0
         m, fakes = make_train_step(cfg)(
             state, {k: put(v) for k, v in host.items()}, 0,
             {k: put(v) for k, v in draws.items()})
         metrics[str(dev)] = {k: float(v) for k, v in m.items()}
-    assert cc.launches() == {'K1-G': 1, 'K1-D': 8, 'K2-G': 1, 'K2-D': 6}
+    launches = dict(cc.launches(), K3=bn_glu.bn_glu_kernel.launches,
+                    K4=conv_dw.dw3x3_kernel.launches)
+    return metrics, launches
+
+
+def _assert_metrics_close(metrics):
     for k, v in metrics['cpu'].items():
         np.testing.assert_allclose(metrics['cuda'][k], v, rtol=1e-3,
                                    atol=1e-5, err_msg=k)
+
+
+def test_tiny_step_on_the_card_matches_the_cpu(card):
+    """Every metric within 1e-3 relative (cuDNN and oneDNN sum convolutions
+    in other orders), and the kernels, not the plain routing, ran on the
+    card."""
+    metrics, launches = _tiny_step_metrics(card)
+    assert launches == {'K1-G': 1, 'K1-D': 8, 'K2-G': 1, 'K2-D': 6, 'K3': 0,
+                        'K4': 0}
+    _assert_metrics_close(metrics)
+
+
+def test_tiny_fused_step_on_the_card_matches_the_cpu(card):
+    """The same with TPU_FUSED_BN_GLU and TPU_PALLAS_DW: K3 at the eight
+    BN+GLU tails of G, K4 at the seven G convs inside the envelope."""
+    metrics, launches = _tiny_step_metrics(card, TPU_FUSED_BN_GLU=True,
+                                           TPU_PALLAS_DW=True)
+    assert launches == {'K1-G': 1, 'K1-D': 8, 'K2-G': 1, 'K2-D': 6, 'K3': 8,
+                        'K4': 7}
+    _assert_metrics_close(metrics)
+
+
+def _bn_glu_inputs(shape, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    c2 = shape[1]
+
+    def put(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    y = put(rng.standard_normal(shape)).to(dtype)
+    return (y, put(rng.normal(0.0, 0.3, c2)), put(rng.uniform(0.5, 1.5, c2)),
+            put(1.0 + rng.normal(0.0, 0.1, c2)), put(rng.normal(0.0, 0.1, c2)))
+
+
+@pytest.mark.parametrize('shape', [
+    (32, 1024, 8, 8),      # flagship stage 1, the first up block
+    (32, 128, 64, 64),     # flagship 64 px tails
+    (4, 64, 128, 128),     # the stage-2 upsample's tail, cut in batch
+    (3, 24, 5, 7),         # ragged H*W: the scalar path
+    (5, 16),               # [B, 2C]: one element per plane
+])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_k3_matches_reference(card, shape, dtype):
+    y, mean, var, scale, bias = _bn_glu_inputs(shape, dtype, card)
+    before = bn_glu.bn_glu_kernel.launches
+    with torch.no_grad():
+        out = bn_glu.fused_bn_glu(y, mean, var, scale, bias)
+        ref = bn_glu.bn_glu_reference(y, mean, var, scale, bias)
+    torch.cuda.synchronize()
+    assert bn_glu.bn_glu_kernel.launches == before + 1
+    assert out.shape == ref.shape and out.dtype == dtype
+    out, ref = out.float().cpu().numpy(), ref.float().cpu().numpy()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+    else:  # one bfloat16 ulp: 2^(exponent - 7)
+        ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(ref), 1e-30))) - 7)
+        assert (np.abs(out - ref) <= ulp).all()
+
+
+def test_k3_backward_matches_plain_autograd(card):
+    inputs = [t.requires_grad_(True) for t in
+              _bn_glu_inputs((4, 32, 16, 16), torch.float32, card, seed=1)]
+    dz = torch.randn((4, 16, 16, 16), device=card)
+    got = torch.autograd.grad(bn_glu.fused_bn_glu(*inputs), inputs, dz)
+    want = torch.autograd.grad(bn_glu.bn_glu_reference(*inputs), inputs, dz)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def assert_k4_close(out, ref):
+    out, ref = out.cpu().numpy(), ref.cpu().numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-3,
+                               atol=1e-4 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize('shape', [
+    (32, 64, 64, 128),     # (B, C, H, F): flagship ResBlock conv 1
+    (32, 64, 64, 64),      # flagship ResBlock conv 2
+    (32, 64, 128, 64),     # flagship stage-2 upsample conv
+    (4, 32, 32, 16),       # a 32 px map
+    (3, 8, 64, 24),        # C and F below one block tile
+    (2, 16, 256, 8),       # 256 px: four slabs per row
+])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_k4_matches_reference(card, shape, dtype):
+    b, c, h, f = shape
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((b, c, h, h), dtype=np.float32))
+    dy = torch.from_numpy(rng.standard_normal((b, f, h, h), dtype=np.float32))
+    x, dy = x.to(card).to(dtype), dy.to(card).to(dtype)
+    before = conv_dw.dw3x3_kernel.launches
+    out = conv_dw.dw3x3(x, dy)
+    ref = conv_dw.dw3x3_reference(x, dy)
+    torch.cuda.synchronize()
+    assert conv_dw.dw3x3_kernel.launches == before + 1
+    assert out.shape == (f, c, 3, 3) and out.dtype == torch.float32
+    assert_k4_close(out, ref)
+
+
+def test_conv3x3_dw_backward_matches_plain_autograd(card):
+    x = torch.randn((4, 16, 64, 64), device=card, requires_grad=True)
+    w = (0.1 * torch.randn((32, 16, 3, 3), device=card)).requires_grad_(True)
+    dy = torch.randn((4, 32, 64, 64), device=card)
+    got = torch.autograd.grad(conv_dw.conv3x3_dw(x, w), (x, w), dy)
+    want = torch.autograd.grad(torch.nn.functional.conv2d(x, w, None, 1, 1),
+                               (x, w), dy)
+    for g, r in zip(got, want):
+        assert_k4_close(g, r)
+
+
+def test_k3_k4_raise_on_what_they_do_not_take(card):
+    y, mean, var, scale, bias = _bn_glu_inputs((2, 8, 4, 4), torch.float32,
+                                               card)
+    k, b = bn_glu.fold_affine(mean, var, scale, bias)
+    with pytest.raises(ValueError):  # y on the card, k and b on the CPU
+        bn_glu.bn_glu_kernel(y, k.cpu(), b.cpu())
+    with pytest.raises(ValueError):
+        bn_glu.fused_bn_glu(y, mean.cpu(), var, scale, bias)
+    with pytest.raises(TypeError):
+        bn_glu.bn_glu_kernel(y.double(), k, b)
+    with pytest.raises(TypeError):
+        bn_glu.bn_glu_kernel(y.half(), k, b)
+    with pytest.raises(ValueError):  # not contiguous
+        bn_glu.bn_glu_kernel(y.transpose(2, 3), k, b)
+    with pytest.raises(ValueError):  # odd channel count
+        bn_glu.bn_glu_kernel(y[:, :7], k[:7], b[:7])
+    x = torch.randn((2, 8, 32, 32), device=card)
+    dy = torch.randn((2, 16, 32, 32), device=card)
+    with pytest.raises(ValueError):  # x on the card, dy on the CPU
+        conv_dw.dw3x3(x, dy.cpu())
+    with pytest.raises(TypeError):
+        conv_dw.dw3x3(x.double(), dy.double())
+    with pytest.raises(TypeError):
+        conv_dw.dw3x3(x, dy.bfloat16())
+    with pytest.raises(ValueError):  # not contiguous
+        conv_dw.dw3x3(x.transpose(2, 3), dy)
+    with pytest.raises(ValueError):  # 16 px: outside the envelope
+        conv_dw.dw3x3(x[:, :, :16, :16].contiguous(),
+                      dy[:, :, :16, :16].contiguous())
+    with pytest.raises(ValueError):  # F = 3: outside the envelope
+        conv_dw.dw3x3(x, dy[:, :3].contiguous())

@@ -125,7 +125,14 @@ def _moments(module, opt):
 @pytest.fixture(scope='module')
 def runs():
     """Both frameworks, STEPS steps each, from the same weights."""
-    cfg = small_cfg()
+    return run_steps(small_cfg(), STEPS)
+
+
+def run_steps(cfg, steps):
+    """``steps`` steps of JAX's make_train_step and of the port's from the
+    same weights, batch and draws: per step the metrics, fakes and BN
+    statistics of both, after step 1 the Adam first moments; and the
+    port's final state."""
     cond_width = jstep.cond_code_width(cfg)
     G = jgen.build_generator(cfg, train_flag=True)
     Ds = jdisc.build_discriminators(cfg, cond_width)
@@ -147,7 +154,7 @@ def runs():
     tfn = make_train_step(cfg)
     tbatch = _port_batch(batch)
     out = {'jax': [], 'port': [], 'sizes': sizes}
-    for n in range(STEPS):
+    for n in range(steps):
         rng = np.array([1, n], np.uint32)
         draws = _jax_draws(G, {'params': jst.g_params,
                                'batch_stats': jst.g_batch_stats},
@@ -180,6 +187,7 @@ def runs():
                                 for D, o in zip(tst.Ds, tst.d_opts)]
         out['jax'].append(jax_rec)
         out['port'].append(port_rec)
+    out['port_state'] = tst
     return out
 
 
@@ -236,10 +244,14 @@ def test_step_refuses_what_is_not_ported():
                              ('TPU_REMAT_G', 'full', 'M14'),
                              ('TPU_GRAD_ACCUM', 2, 'M13'),
                              ('TPU_SUBPIXEL_UP', True, 'M14'),
-                             ('TPU_FUSED_BN_GLU', True, 'M14'),
-                             ('TPU_PALLAS_DW', True, 'M14'),
                              ('DATASET_NAME', 'coco', 'M12')):
         cfg = small_cfg()
         setattr(cfg, key, value)
         with pytest.raises(NotImplementedError, match=item):
             make_train_step(cfg)
+
+
+def test_step_accepts_the_kernel_switches():
+    cfg = small_cfg()
+    cfg.TPU_FUSED_BN_GLU = cfg.TPU_PALLAS_DW = True
+    assert callable(make_train_step(cfg))

@@ -135,12 +135,14 @@ class Config:
     TPU_SPMD_MODE: str = 'shard_map'
     TPU_GROUPED_D: bool = False          # raises when set (M13)
     TPU_SHARDED_ADAM: bool = False
-    # Kernel and formulation switches of the JAX package; the port raises
-    # when one that changes what runs is set (M14).
-    TPU_FUSED_BN_GLU: bool = False       # needs K3
+    # Kernel and formulation switches of the JAX package. Used: the fused
+    # BN+GLU tails of G through kernel K3 (train and eval), and the weight
+    # gradient of the 3x3 convs inside dw_supported through kernel K4. The
+    # step raises on TPU_SUBPIXEL_UP and TPU_REMAT_G (M14).
+    TPU_FUSED_BN_GLU: bool = False
     TPU_SPLIT_JOINTCONV: bool = True     # same function either way
     TPU_SUBPIXEL_UP: bool = False
-    TPU_PALLAS_DW: bool = False          # needs K4
+    TPU_PALLAS_DW: bool = False
     TPU_REMAT_G: str = ''
     # XLA compiler knobs: no counterpart in the port.
     TPU_SCOPED_VMEM_KIB: int = 0

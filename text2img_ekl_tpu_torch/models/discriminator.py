@@ -49,13 +49,16 @@ def concat_cond(x_code: torch.Tensor, c_code: torch.Tensor) -> torch.Tensor:
 
 
 class JointDNet(nn.Module):
-    """Three-headed joint discriminator at 64 or 128 px."""
+    """Three-headed joint discriminator at 64 or 128 px. ``kernel_dw``
+    (TPU_PALLAS_DW) routes the weight gradient of its 3x3 convs through
+    kernel K4 where ``dw_supported`` holds, as the JAX package's module
+    switch reaches them; they run on the 4x4 code, outside the envelope."""
 
     def __init__(self, ndf: int = 64, ef_dim: int = 256,
                  entity_dim: int = 200, imsize: int = 64,
                  use_cap: bool = False, num_iterations: int = 3,
                  routing: str = 'dynamic', use_kernel: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, kernel_dw: bool = False):
         super().__init__()
         if imsize not in (64, 128):
             raise NotImplementedError(
@@ -67,8 +70,10 @@ class JointDNet(nn.Module):
         self.img_code_s16 = EncodeBy16(ndf, dtype)
         if imsize == 128:
             self.img_code_s32 = DownBlock(ndf * 8, ndf * 16, dtype)
-            self.img_code_s32_1 = Block3x3LeakyRelu(ndf * 16, ndf * 8, dtype)
-        self.jointConv = Block3x3LeakyRelu(ndf * 8 + ef_dim, ndf * 8, dtype)
+            self.img_code_s32_1 = Block3x3LeakyRelu(ndf * 16, ndf * 8, dtype,
+                                                    kernel_dw)
+        self.jointConv = Block3x3LeakyRelu(ndf * 8 + ef_dim, ndf * 8, dtype,
+                                           kernel_dw)
         self.logits = _logit_head(ndf * 8, dtype)
         self.uncond_logits = _logit_head(ndf * 8, dtype)
         if use_cap:
@@ -140,7 +145,8 @@ def build_discriminators(cfg, cond_width: Optional[int] = None
         imsize=size, use_cap=cfg.TRAIN.D_CAPSULE,
         num_iterations=cfg.TPU_CAPSULE_ITERATIONS,
         routing=cfg.TPU_CAPSULE_ROUTING, use_kernel=cfg.TPU_CAPSULE_PALLAS,
-        dtype=compute_dtype(cfg)) for size in cfg.branch_sizes()]
+        dtype=compute_dtype(cfg), kernel_dw=bool(cfg.TPU_PALLAS_DW))
+        for size in cfg.branch_sizes()]
 
 
 class DNet(nn.Module):

@@ -48,11 +48,12 @@ class _UpStack(nn.Module):
     (model.py:217-220); mixed into the stage so the keys are
     ``h_net1.upsample1..4``."""
 
-    def _make_up(self, ngf: int, dtype: torch.dtype) -> None:
-        self.upsample1 = UpBlock(ngf, ngf // 2, dtype)
-        self.upsample2 = UpBlock(ngf // 2, ngf // 4, dtype)
-        self.upsample3 = UpBlock(ngf // 4, ngf // 8, dtype)
-        self.upsample4 = UpBlock(ngf // 8, ngf // 16, dtype)
+    def _make_up(self, ngf: int, dtype: torch.dtype, fused_bn_glu: bool,
+                 kernel_dw: bool) -> None:
+        for k in range(1, 5):
+            setattr(self, 'upsample%d' % k, UpBlock(
+                ngf // 2 ** (k - 1), ngf // 2 ** k, dtype, fused_bn_glu,
+                kernel_dw))
 
     def _up(self, x: torch.Tensor) -> torch.Tensor:
         x = self.upsample1(x)
@@ -65,13 +66,14 @@ class CondInitStageG(_UpStack):
     """FC -> BN -> GLU -> 4x4 x ngf -> four up blocks (model.py:204-235)."""
 
     def __init__(self, ngf: int, in_dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 fused_bn_glu: bool = False, kernel_dw: bool = False):
         super().__init__()
         self.ngf = ngf
         self.fc = nn.Sequential(Dense(in_dim, ngf * 4 * 4 * 2, bias=False,
                                       dtype=dtype),
                                 BatchNorm(ngf * 4 * 4 * 2), GLU(dtype))
-        self._make_up(ngf, dtype)
+        self._make_up(ngf, dtype, fused_bn_glu, kernel_dw)
 
     def forward(self, c_code: torch.Tensor,
                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -88,7 +90,8 @@ class CondInitStageGWithCap(_UpStack):
 
     def __init__(self, ngf: int, num_iterations: int = 3,
                  routing: str = 'dynamic', use_kernel: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 fused_bn_glu: bool = False, kernel_dw: bool = False):
         super().__init__()
         self.ngf = ngf
         self.fc_cap = nn.Sequential(
@@ -98,7 +101,7 @@ class CondInitStageGWithCap(_UpStack):
                           num_iterations=num_iterations, routing=routing,
                           use_kernel=use_kernel),
             _Flatten(), BatchNorm(ngf * 4 * 4 * 2), GLU(dtype))
-        self._make_up(ngf, dtype)
+        self._make_up(ngf, dtype, fused_bn_glu, kernel_dw)
 
     def forward(self, c_code: torch.Tensor,
                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -112,18 +115,25 @@ class NextStageG(nn.Module):
     """Tile the condition over HxW, joint conv, residual blocks, upsample
     (model.py:379-423). The joint conv is the plain conv over
     ``concat(tile(c), h)``; the JAX package's tile-free rewrite of it
-    computes the same function with the same parameter."""
+    computes the same function with the same parameter. That rewrite never
+    takes the Pallas dW; the concatenated conv here has ngf + ef_dim > 64
+    input channels in every config (EMBEDDING_DIM 128), outside K4's
+    envelope, so it never takes K4 either."""
 
     def __init__(self, ngf: int, ef_dim: int, num_residual: int = 2,
-                 scale: int = 2, dtype: torch.dtype = torch.float32):
+                 scale: int = 2, dtype: torch.dtype = torch.float32,
+                 fused_bn_glu: bool = False, kernel_dw: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.jointConv = Block3x3Relu(ngf + ef_dim, ngf, dtype)
-        self.residual = nn.ModuleList(ResBlock(ngf, dtype)
-                                      for _ in range(num_residual))
-        self.upsample = UpBlock(ngf, ngf // 2, dtype)
+        self.jointConv = Block3x3Relu(ngf + ef_dim, ngf, dtype, fused_bn_glu,
+                                      kernel_dw)
+        self.residual = nn.ModuleList(
+            ResBlock(ngf, dtype, fused_bn_glu, kernel_dw)
+            for _ in range(num_residual))
+        self.upsample = UpBlock(ngf, ngf // 2, dtype, fused_bn_glu, kernel_dw)
         if scale == 4:
-            self.upsample2 = UpBlock(ngf // 2, ngf // 4, dtype)
+            self.upsample2 = UpBlock(ngf // 2, ngf // 4, dtype, fused_bn_glu,
+                                     kernel_dw)
 
     def forward(self, h_code: torch.Tensor,
                 c_code: torch.Tensor) -> torch.Tensor:
@@ -141,9 +151,10 @@ class NextStageG(nn.Module):
 class ToRGB(nn.Module):
     """conv3x3 -> tanh decoder head (model.py:426-437), tanh in float32."""
 
-    def __init__(self, ngf: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, ngf: int, dtype: torch.dtype = torch.float32,
+                 kernel_dw: bool = False):
         super().__init__()
-        self.img = nn.Sequential(Conv3x3(ngf, 3, dtype))
+        self.img = nn.Sequential(Conv3x3(ngf, 3, dtype, kernel_dw))
 
     def forward(self, h_code: torch.Tensor) -> torch.Tensor:
         return torch.tanh(self.img(h_code).float())
@@ -167,7 +178,8 @@ class CondGNetCatZCA(nn.Module):
     In eval mode with ``use_cls_prior`` (model.py:485-494) the class code
     is a supplied ``cls_prior`` or a standard normal draw from
     ``generator``; ``eps``/``eps_cls`` inject the CA/VC reparameterisation
-    draws.
+    draws. ``fused_bn_glu`` and ``kernel_dw`` reach every block (see
+    ``nn.blocks``).
     """
 
     def __init__(self, sen_dim: int = 1024, cls_dim: int = 200,
@@ -176,7 +188,8 @@ class CondGNetCatZCA(nn.Module):
                  scale: int = 2, use_cap: bool = False, cat: str = 'concat',
                  use_cls_prior: bool = False, num_iterations: int = 3,
                  routing: str = 'dynamic', use_kernel: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 fused_bn_glu: bool = False, kernel_dw: bool = False):
         super().__init__()
         if not 1 <= branch_num <= 3:
             raise ValueError('BRANCH_NUM must be 1, 2 or 3')
@@ -188,19 +201,21 @@ class CondGNetCatZCA(nn.Module):
         self.vc_net2 = VCNet(z_dim + cls_dim, manifd_dim, dtype)
         c_dim = ef_dim + manifd_dim if cat == 'concat' else ef_dim
         ngf = gf_dim * 16
+        flags = dict(fused_bn_glu=fused_bn_glu, kernel_dw=kernel_dw)
         if use_cap:
             self.h_net1 = CondInitStageGWithCap(
-                ngf, num_iterations, routing, use_kernel, dtype)
+                ngf, num_iterations, routing, use_kernel, dtype, **flags)
         else:
-            self.h_net1 = CondInitStageG(ngf, c_dim + z_dim, dtype)
-        self.img_net1 = ToRGB(gf_dim, dtype)
+            self.h_net1 = CondInitStageG(ngf, c_dim + z_dim, dtype, **flags)
+        self.img_net1 = ToRGB(gf_dim, dtype, kernel_dw)
         if branch_num > 1:
-            self.h_net2 = NextStageG(gf_dim, c_dim, r_num, scale, dtype)
-            self.img_net2 = ToRGB(gf_dim // scale, dtype)
+            self.h_net2 = NextStageG(gf_dim, c_dim, r_num, scale, dtype,
+                                     **flags)
+            self.img_net2 = ToRGB(gf_dim // scale, dtype, kernel_dw)
         if branch_num > 2:
             self.h_net3 = NextStageG(gf_dim // scale, c_dim, r_num, scale,
-                                     dtype)
-            self.img_net3 = ToRGB(gf_dim // scale ** 2, dtype)
+                                     dtype, **flags)
+            self.img_net3 = ToRGB(gf_dim // scale ** 2, dtype, kernel_dw)
 
     def forward(self, noise: torch.Tensor, sen: torch.Tensor,
                 cls: Optional[torch.Tensor] = None,
@@ -244,8 +259,9 @@ def compute_dtype(cfg) -> torch.dtype:
 
 def build_generator(cfg, train_flag: bool = True) -> CondGNetCatZCA:
     """The generator the split-z CA trainers build for ``cfg``
-    (cub_trainer_splitz_cap_ca.py:113-135). The other families are not
-    ported yet."""
+    (cub_trainer_splitz_cap_ca.py:113-135), in train and in eval builds
+    alike with the config's kernel switches (TPU_FUSED_BN_GLU: K3,
+    TPU_PALLAS_DW: K4). The other families are not ported yet."""
     if not cfg.GAN.B_CONDITION:
         raise NotImplementedError(
             'GNet (B_CONDITION False) is not ported yet: ROADMAP.md M12')
@@ -267,4 +283,5 @@ def build_generator(cfg, train_flag: bool = True) -> CondGNetCatZCA:
         use_cls_prior=cfg.TEST.CLS_PRIOR,
         num_iterations=cfg.TPU_CAPSULE_ITERATIONS,
         routing=cfg.TPU_CAPSULE_ROUTING, use_kernel=cfg.TPU_CAPSULE_PALLAS,
-        dtype=compute_dtype(cfg))
+        dtype=compute_dtype(cfg), fused_bn_glu=bool(cfg.TPU_FUSED_BN_GLU),
+        kernel_dw=bool(cfg.TPU_PALLAS_DW))

@@ -12,6 +12,13 @@ run in the compute ``dtype`` (float32 parameters cast at the call),
 BatchNorm normalizes in float32 (eps 1e-5, scale init N(1, 0.02)) with
 flax's statistics, GLU and LeakyReLU run on the float32 BN output and cast
 back to ``dtype``. Orthogonal init as the reference's ``weights_init``.
+
+Two switches of the JAX package are constructor flags here:
+``fused_bn_glu`` (``TPU_FUSED_BN_GLU``) makes every 4-D BN -> GLU tail one
+``FusedBatchNormGLU`` (kernel K3), with the same ``state_dict`` keys (the
+BN slot holds the fused module, the GLU slot an identity); ``kernel_dw``
+(``TPU_PALLAS_DW``) routes a ``Conv3x3``'s weight gradient through kernel
+K4 wherever ``dw_supported`` holds for the call's shapes.
 """
 
 from __future__ import annotations
@@ -22,6 +29,9 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops import bn_glu as bn_glu_op
+from ..ops import conv_dw
 
 
 def glu(x: torch.Tensor) -> torch.Tensor:
@@ -80,24 +90,67 @@ class BatchNorm(nn.Module):
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def batch_statistics(self, x: torch.Tensor):
+        """flax's float32 mean and E[x^2] - mean^2 (biased, unclipped) over
+        every axis but the channel."""
         xf = x.float()
-        if not self.training:
-            return F.batch_norm(xf, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
         dims = [0] + list(range(2, x.dim()))
         mean = xf.mean(dims)
-        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        return mean, (xf * xf).mean(dims) - mean * mean
+
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Fold batch statistics into the running ones, unless frozen."""
         if self.update_running_stats:
             with torch.no_grad():
                 self.running_mean.mul_(BN_MOMENTUM).add_(
                     mean.detach(), alpha=1.0 - BN_MOMENTUM)
                 self.running_var.mul_(BN_MOMENTUM).add_(
                     var.detach(), alpha=1.0 - BN_MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if not self.training:
+            return F.batch_norm(xf, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        mean, var = self.batch_statistics(xf)
+        var = torch.clamp(var, min=0.0)
+        self.update_running(mean, var)
         shape = (1, -1) + (1,) * (x.dim() - 2)
         scale = torch.rsqrt(var + self.eps) * self.weight
         return (xf - mean.view(shape)) * scale.view(shape) + \
             self.bias.view(shape)
+
+
+class FusedBatchNormGLU(BatchNorm):
+    """BatchNorm over dim 1 of [B, 2C, H, W] and the GLU after it as one
+    fused pass (``fused_bn_glu``, kernel K3 on the card), then a cast to
+    the compute dtype. Counterpart of the JAX package's ``FusedBatchNormGLU``
+    (``text2img_ekl_tpu/nn/blocks.py:143-170``), with ``BatchNorm``'s
+    parameters and buffers. Train mode takes flax's float32 statistics,
+    mean and E[x^2] - mean^2, unclipped as the JAX fused module takes them,
+    and folds them into the running statistics as ``BatchNorm`` does; eval
+    mode uses the running statistics."""
+
+    def __init__(self, num_features: int, dtype: torch.dtype = torch.float32):
+        super().__init__(num_features)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            mean, var = self.batch_statistics(x)
+            self.update_running(mean, var)
+        return bn_glu_op.fused_bn_glu(x.contiguous(), mean, var, self.weight,
+                                      self.bias).to(self.dtype)
+
+
+def bn_glu_tail(planes: int, dtype: torch.dtype, fused: bool):
+    """The (BN, GLU) slots of a block's tail: the plain pair, or the fused
+    module and an identity (same ``state_dict`` keys)."""
+    if fused:
+        return [FusedBatchNormGLU(planes, dtype), nn.Identity()]
+    return [BatchNorm(planes), GLU(dtype)]
 
 
 @contextlib.contextmanager
@@ -116,17 +169,24 @@ def frozen_running_stats(module: nn.Module):
 
 
 class Conv3x3(nn.Conv2d):
-    """3x3 stride-1 pad-1 bias-free conv in the compute dtype."""
+    """3x3 stride-1 pad-1 bias-free conv in the compute dtype. With
+    ``kernel_dw`` its weight gradient is kernel K4 wherever ``dw_supported``
+    holds for the call's shapes, as the JAX package routes
+    (``text2img_ekl_tpu/nn/blocks.py:351-354``)."""
 
     def __init__(self, in_planes: int, out_planes: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, kernel_dw: bool = False):
         super().__init__(in_planes, out_planes, 3, 1, 1, bias=False)
         self.dtype = dtype
+        self.kernel_dw = kernel_dw
         nn.init.orthogonal_(self.weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
-                        None, 1, 1)
+        x = x.to(self.dtype)
+        if self.kernel_dw and conv_dw.dw_supported(
+                x.shape[2], x.shape[3], x.shape[1], self.out_channels):
+            return conv_dw.conv3x3_dw(x, self.weight)
+        return F.conv2d(x, self.weight.to(self.dtype), None, 1, 1)
 
 
 class Dense(nn.Linear):
@@ -149,30 +209,34 @@ class UpBlock(nn.Sequential):
     """nearest-2x upsample -> conv3x3(2*out) -> BN -> GLU (model.py:87-94)."""
 
     def __init__(self, in_planes: int, out_planes: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 fused_bn_glu: bool = False, kernel_dw: bool = False):
         super().__init__(nn.Upsample(scale_factor=2, mode='nearest'),
-                         Conv3x3(in_planes, out_planes * 2, dtype),
-                         BatchNorm(out_planes * 2), GLU(dtype))
+                         Conv3x3(in_planes, out_planes * 2, dtype, kernel_dw),
+                         *bn_glu_tail(out_planes * 2, dtype, fused_bn_glu))
 
 
 class Block3x3Relu(nn.Sequential):
     """conv3x3(2*out) -> BN -> GLU, same spatial size (model.py:98-104)."""
 
     def __init__(self, in_planes: int, out_planes: int,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(Conv3x3(in_planes, out_planes * 2, dtype),
-                         BatchNorm(out_planes * 2), GLU(dtype))
+                 dtype: torch.dtype = torch.float32,
+                 fused_bn_glu: bool = False, kernel_dw: bool = False):
+        super().__init__(Conv3x3(in_planes, out_planes * 2, dtype, kernel_dw),
+                         *bn_glu_tail(out_planes * 2, dtype, fused_bn_glu))
 
 
 class ResBlock(nn.Module):
     """conv-BN-GLU-conv-BN + skip (model.py:107-123)."""
 
-    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
+                 fused_bn_glu: bool = False, kernel_dw: bool = False):
         super().__init__()
         self.dtype = dtype
         self.block = nn.Sequential(
-            Conv3x3(channels, channels * 2, dtype), BatchNorm(channels * 2),
-            GLU(dtype), Conv3x3(channels, channels, dtype),
+            Conv3x3(channels, channels * 2, dtype, kernel_dw),
+            *bn_glu_tail(channels * 2, dtype, fused_bn_glu),
+            Conv3x3(channels, channels, dtype, kernel_dw),
             BatchNorm(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -228,8 +292,8 @@ class Block3x3LeakyRelu(nn.Sequential):
     """conv3x3 -> BN -> LeakyReLU(0.2) (model.py:812-818)."""
 
     def __init__(self, in_planes: int, out_planes: int,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(Conv3x3(in_planes, out_planes, dtype),
+                 dtype: torch.dtype = torch.float32, kernel_dw: bool = False):
+        super().__init__(Conv3x3(in_planes, out_planes, dtype, kernel_dw),
                          BatchNorm(out_planes), LeakyReLU(dtype))
 
 

@@ -1,0 +1,162 @@
+"""K4: the weight gradient of a 3x3 stride-1 SAME bias-free convolution as
+a hand-written CUDA kernel, and the conv whose backward uses it.
+
+Replaces ``text2img_ekl_tpu/ops/conv_dw.py``: ``dw3x3`` (``_dw_kernel``)
+and ``dw3x3_v2`` (``_dw_kernel_v2``), two TPU bodies of one function,
+
+    dW[f, c, ky, kx] = sum_{b, y, x} x[b, c, y+ky-1, x+kx-1] dy[b, f, y, x]
+
+accumulated in float32, and ``conv3x3_dw``, the conv whose custom VJP
+computes dW with it. The port's layouts are PyTorch's: x [B, C, H, W], dy
+[B, F, H, W], dW [F, C, 3, 3] (the conv weight's). The kernel
+(``csrc/conv3x3_dw.cu``) contracts bfloat16 inputs on the tensor cores and
+float32 inputs on the SIMT cores, both with float32 accumulators, into
+split-K partial sums in a scratch and a fixed-order sum of them.
+
+``dw3x3`` runs ``dw3x3_reference`` for tensors on the CPU, and only there;
+for CUDA tensors it launches the kernel or raises, also on a shape outside
+``dw_supported``, the JAX package's envelope, which ``nn.blocks.Conv3x3``
+uses to route exactly as the JAX package does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# (text2img_ekl_tpu/ops/conv_dw.py:_TILE_FOR_W) row tile per width: the
+# envelope needs H divisible by it
+_TILE_FOR_W = {32: 32, 64: 64, 128: 128, 256: 64, 512: 16}
+# the kernel's block tile (csrc/conv3x3_dw.cu): 64 output x 32 input
+# channels, slabs of at most 64 columns; blocks in flight per SM
+TILE_F, TILE_C, MAX_SLAB_COLS, BLOCKS_PER_SM = 64, 32, 64, 2
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_fn = None
+_sms = {}
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        f = _build.library('conv3x3_dw').conv3x3_dw
+        f.argtypes = [_P] * 4 + [_I] * 8 + [_P]
+        f.restype = ctypes.c_int
+        _fn = f
+    return _fn
+
+
+def dw_supported(H: int, W: int, C: int, F: int) -> bool:
+    """The JAX package's envelope for its Pallas dW
+    (``text2img_ekl_tpu/ops/conv_dw.py:75-84``, default tile): square maps
+    of 32 to 512 px, C <= 64, and W and F multiples of 8."""
+    return (H == W and W in _TILE_FOR_W and C <= 64 and
+            H % _TILE_FOR_W[W] == 0 and W % 8 == 0 and F % 8 == 0)
+
+
+def dw3x3_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch: nine shifted float32 contractions over the zero-padded
+    x; x [B, C, H, W], dy [B, F, H, W] -> dW [F, C, 3, 3] float32 (K4's twin
+    on the CPU)."""
+    h, w = x.shape[2:]
+    xp = F.pad(x.float(), (1, 1, 1, 1))
+    dyf = dy.float()
+    taps = [torch.einsum('bfhw,bchw->fc', dyf,
+                         xp[:, :, ky:ky + h, kx:kx + w])
+            for ky in range(3) for kx in range(3)]
+    return torch.stack(taps, -1).view(dy.shape[1], x.shape[1], 3, 3)
+
+
+def splits_for(B: int, C: int, H: int, W: int, F: int, sms: int) -> int:
+    """Split-K factor: enough (tile, split) blocks to fill every SM
+    BLOCKS_PER_SM times, at most one slab (an image row segment) each."""
+    tiles = -(-F // TILE_F) * -(-C // TILE_C)
+    slabs = B * H * (W // min(W, MAX_SLAB_COLS))
+    return max(1, min(slabs, -(-BLOCKS_PER_SM * sms // tiles)))
+
+
+def dw3x3(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """dW [F, C, 3, 3] float32 of a 3x3 stride-1 pad-1 bias-free conv, from
+    its input x [B, C, H, W] and output gradient dy [B, F, H, W]: the plain
+    contractions on the CPU, K4 on the card."""
+    if x.device.type == 'cpu' and dy.device.type == 'cpu':
+        return dw3x3_reference(x, dy)
+    return dw3x3_kernel(x, dy)
+
+
+def dw3x3_kernel(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """K4 on the card; raises on what it does not take."""
+    if x.device.type != 'cuda' or dy.device != x.device:
+        raise ValueError('dw3x3: x and dy must lie on one CUDA device, got '
+                         '%s and %s' % (x.device, dy.device))
+    if x.dtype not in DTYPES or dy.dtype != x.dtype:
+        raise TypeError('dw3x3: x and dy must both be float32 or bfloat16, '
+                        'got %s and %s' % (x.dtype, dy.dtype))
+    if x.dim() != 4 or dy.dim() != 4 or x.shape[0] != dy.shape[0] or \
+            x.shape[2:] != dy.shape[2:]:
+        raise ValueError('dw3x3: x [B, C, H, W] and dy [B, F, H, W], got %s '
+                         'and %s' % (tuple(x.shape), tuple(dy.shape)))
+    bsz, c, h, w = x.shape
+    f = dy.shape[1]
+    if not dw_supported(h, w, c, f):
+        raise ValueError('dw3x3: H=%d W=%d C=%d F=%d is outside the kernel\'s '
+                         'envelope (dw_supported)' % (h, w, c, f))
+    if not (x.is_contiguous() and dy.is_contiguous()):
+        raise ValueError('dw3x3: x and dy must be contiguous')
+    out = torch.empty((f, c, 3, 3), device=x.device, dtype=torch.float32)
+    if bsz == 0:
+        return out.zero_()
+    dev = x.device.index if x.device.index is not None else \
+        torch.cuda.current_device()
+    if dev not in _sms:
+        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = splits_for(bsz, c, h, w, f, _sms[dev])
+    partial = torch.empty(splits * f * c * 9, device=x.device,
+                          dtype=torch.float32)
+    err = _kernel()(x.data_ptr(), dy.data_ptr(), partial.data_ptr(),
+                    out.data_ptr(), bsz, c, h, w, f, splits, DTYPES[x.dtype],
+                    dev, torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError('conv3x3_dw failed to launch: CUDA error %d' % err)
+    dw3x3_kernel.launches += 1
+    return out
+
+
+# Launches of the kernel (CUDA calls only): a run reads it to show that its
+# path went through K4.
+dw3x3_kernel.launches = 0
+
+
+class Conv3x3DW(torch.autograd.Function):
+    """3x3 stride-1 pad-1 bias-free conv of x with ``w.to(x.dtype)`` whose
+    weight gradient is ``dw3x3`` (``text2img_ekl_tpu/ops/conv_dw.py:248-279``).
+    The cast is inside, so dW returns in float32 without the round trip
+    through x's type that plain autograd makes; dx is the transposed conv,
+    as the JAX package leaves it to XLA."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return F.conv2d(x, w.to(x.dtype), None, 1, 1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.nn.grad.conv2d_input(x.shape, w.to(x.dtype), dy, 1, 1)
+        if ctx.needs_input_grad[1]:
+            dw = dw3x3(x.contiguous(), dy).to(w.dtype)
+        return dx, dw
+
+
+def conv3x3_dw(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [B, C, H, W] conv w [F, C, 3, 3] (float32 parameter), stride 1, pad
+    1, no bias, in x's type; dW by ``dw3x3``."""
+    return Conv3x3DW.apply(x, w)

@@ -36,10 +36,6 @@ _NOT_PORTED = (
     ('TPU_GROUPED_D', 'grouped D passes (TPU_GROUPED_D)', 'M13'),
     ('TPU_REMAT_G', 'G rematerialisation (TPU_REMAT_G)', 'M14'),
     ('TPU_SUBPIXEL_UP', 'the subpixel upsample (TPU_SUBPIXEL_UP)', 'M14'),
-    ('TPU_FUSED_BN_GLU', 'the fused BN+GLU kernel K3 (TPU_FUSED_BN_GLU)',
-     'M14'),
-    ('TPU_PALLAS_DW', 'the conv weight-gradient kernel K4 (TPU_PALLAS_DW)',
-     'M14'),
 )
 
 

@@ -2,7 +2,7 @@
 """Where the PyTorch port's caption sampler, or its training step, spends
 device time.
 
-    python3 tools/profile_torch_sampler.py [--calls 5] [--train]
+    python3 tools/profile_torch_sampler.py [--calls 5] [--train] [--switches]
 
 Needs a CUDA card. Without ``--train``: builds the flagship eval generator
 (cfg/birds_2stg_splitz_cap_ca_eval.realcls.yml, full width, the config's
@@ -11,9 +11,12 @@ warms up, then records ``--calls`` caption-sampler calls (32 images x 10
 captions each) under torch.profiler. With ``--train``: records
 ``--calls`` training steps of the flagship training config
 (cfg/birds_2stg_splitz_cap_ca.realcls.yml, full width, batch 32) on one
-synthetic batch, after two warm-up steps. Prints the device time by
-kernel group and the top kernels, the device's busy share of the window,
-and writes a Chrome trace to chiprun_out/{sampler,train}_trace.json.
+synthetic batch, after two warm-up steps. ``--switches`` sets
+TPU_FUSED_BN_GLU and TPU_PALLAS_DW on the config (kernels K3 and K4).
+Prints the device time by kernel group and the top kernels, the device's
+busy share of the window and the host operators with the most self CPU
+time, and writes a Chrome trace, {sampler,train}[_switches]_trace.json,
+to the directory ``main`` names.
 """
 
 from __future__ import annotations
@@ -24,7 +27,9 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GROUPS = (('K1-G capsule routing', ('routing_fwd_kernel',)),
+GROUPS = (('K3 fused BN+GLU', ('bn_glu_kernel',)),
+          ('K4 conv weight gradient', ('dw_partial', 'dw_reduce')),
+          ('K1-G capsule routing', ('routing_fwd_kernel',)),
           ('K1-D capsule routing', ('routing_votes_fwd_kernel',)),
           ('K2-G routing backward', ('routing_bwd_factored_kernel',
                                      'dw_factored_kernel')),
@@ -50,6 +55,8 @@ def main() -> int:
     ap.add_argument('--calls', type=int, default=5)
     ap.add_argument('--train', action='store_true',
                     help='profile training steps instead of sampler calls')
+    ap.add_argument('--switches', action='store_true',
+                    help='set TPU_FUSED_BN_GLU and TPU_PALLAS_DW')
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -71,6 +78,7 @@ def main() -> int:
         from text2img_ekl_tpu_torch.train.trainer import CondGANTrainer
         cfg = cfg_from_file(TRAIN_CFG)
         cfg.TPU_SYNTHETIC_DATA = True
+        cfg.TPU_FUSED_BN_GLU = cfg.TPU_PALLAS_DW = args.switches
         trainer = CondGANTrainer(cfg, os.path.join(ROOT, 'output',
                                                    'profile_train'),
                                  device='cuda')
@@ -85,6 +93,7 @@ def main() -> int:
         what, per_call = 'steps', cfg.TRAIN.BATCH_SIZE
     else:
         cfg = cfg_from_file(CFG)
+        cfg.TPU_FUSED_BN_GLU = cfg.TPU_PALLAS_DW = args.switches
         G = build_generator(cfg, train_flag=False).to(dev)
         G.load_state_dict(_seeded_generator(cfg, build_generator, dev))
         G.eval()
@@ -118,10 +127,11 @@ def main() -> int:
     attr = 'device_time_total' if hasattr(events[0], 'device_time_total') \
         else 'cuda_time_total'
     total = sum(getattr(e, attr) for e in events) / 1e3
-    print('%d %s (%d images each, %s): wall %.2f ms, device kernels '
-          '%.2f ms (busy %.1f%% of the window)'
-          % (args.calls, what, per_call, cfg.TPU_COMPUTE_DTYPE, wall_ms,
-             total, 100 * total / wall_ms))
+    print('%d %s (%d images each, %s, switches %s): wall %.2f ms, device '
+          'kernels %.2f ms (busy %.1f%% of the window)'
+          % (args.calls, what, per_call, cfg.TPU_COMPUTE_DTYPE,
+             'on' if args.switches else 'off', wall_ms, total,
+             100 * total / wall_ms))
     groups = {}
     for e in events:
         g = _group(e.key)
@@ -134,10 +144,19 @@ def main() -> int:
     for e in sorted(events, key=lambda e: -getattr(e, attr))[:15]:
         print('  %9.3f  %4d  %s' % (getattr(e, attr) / 1e3 / args.calls,
                                     e.count // args.calls, e.key[:110]))
+    host_ops = sorted((e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CPU),
+                      key=lambda e: -e.self_cpu_time_total)[:10]
+    print('host operators by self CPU time (ms per %s, calls per %s):'
+          % (what[:-1], what[:-1]))
+    for e in host_ops:
+        print('  %9.3f  %5d  %s' % (e.self_cpu_time_total / 1e3 / args.calls,
+                                    e.count // args.calls, e.key[:100]))
     out = os.path.join(ROOT, 'chiprun_out')
     os.makedirs(out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(
-        out, '%s_trace.json' % ('train' if args.train else 'sampler')))
+    prof.export_chrome_trace(os.path.join(out, '%s%s_trace.json' % (
+        'train' if args.train else 'sampler',
+        '_switches' if args.switches else '')))
     if args.train:
         return 0
 
