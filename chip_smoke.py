@@ -45,7 +45,13 @@ found; any failure raises and exits non-zero:
      same weights, both timed in turns;
  13. drive the training path with both switches on: train(max_steps=2) at
      full width, the launches of all six kernels per step; then the step
-     with both switches off and on, timed in turns in this one call.
+     with both switches off and on, timed in turns in this one call;
+ 14. drive the capsule microbenchmark's variant sweep
+     (tools/bench_capsule_torch.py --variants) at the generator head, B=32
+     and B=320, and the discriminator head, B=32: it holds the three
+     batch-blocked routing variants (V-stored, V-seq, V-recompute) at every
+     NB it sweeps to the plain routing at K1's bar and times each in turns
+     with K1; check the launches of every kernel in that run.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, where
@@ -94,8 +100,12 @@ TRAIN_STEPS = 3
 # (errD_cls = ce(real) + ce(fake)); phase 3 runs one more forward and
 # backward per D; the G head runs one forward and one backward. The epoch
 # grid adds one K1-G launch per run.
-PER_STEP = {'K1-G': 1, 'K1-D': 8, 'K2-G': 1, 'K2-D': 6, 'K3': 0, 'K4': 0}
-PER_RUN = {'K1-G': 1, 'K1-D': 0, 'K2-G': 0, 'K2-D': 0, 'K3': 0, 'K4': 0}
+# The variants V run on the microbenchmark's path only (phase 14).
+V_ZERO = {'V-stored': 0, 'V-seq': 0, 'V-recompute': 0}
+PER_STEP = dict(V_ZERO, **{'K1-G': 1, 'K1-D': 8, 'K2-G': 1, 'K2-D': 6,
+                           'K3': 0, 'K4': 0})
+PER_RUN = dict(V_ZERO, **{'K1-G': 1, 'K1-D': 0, 'K2-G': 0, 'K2-D': 0,
+                          'K3': 0, 'K4': 0})
 # with TPU_FUSED_BN_GLU and TPU_PALLAS_DW: K3 at the 8 BN+GLU tails of each
 # G forward (the step's and the epoch grid's); K4 at the 5 G convs whose
 # weight gradient lies inside the envelope (two ResBlocks' two convs at
@@ -113,6 +123,9 @@ K3_SHAPES = (((32, 1024, 8, 8), 1), ((32, 512, 16, 16), 1),
 # K4's inputs at the flagship: (x [B, C, H, W], F) and launches per step
 K4_SHAPES = (((32, 64, 64, 64), 128, 2), ((32, 64, 64, 64), 64, 2),
              ((32, 64, 128, 128), 64, 1))
+# phase 14: the microbenchmark runs (batch, --shape); the first is the
+# record's shape for V (the sampler's batch at the generator head)
+V_RUNS = ((320, '48,8,1024,32'), (32, '48,8,1024,32'), (32, '16,512,201,16'))
 # K3 vs its plain version: float32 |d| <= 1e-6 |ref| + 1e-6; bfloat16 one
 # bfloat16 ulp of the reference (both round one float32 value once)
 K3_TOL = 1e-6
@@ -342,6 +355,8 @@ def main() -> int:
     from text2img_ekl_tpu_torch.train.state import create_train_state
     from text2img_ekl_tpu_torch.train.step import make_train_step
     from text2img_ekl_tpu_torch.train.trainer import CondGANTrainer
+    from text2img_ekl_tpu_torch.ops import capsule_variants as cv
+    from tools import bench_capsule_torch as bench
 
     card = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -354,7 +369,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device('cuda')
     kernels = dict(cc.KERNELS, K3=bn_glu.bn_glu_kernel,
-                   K4=conv_dw.dw3x3_kernel)
+                   K4=conv_dw.dw3x3_kernel, **cv.KERNELS)
 
     def reset_launches():
         for fn in kernels.values():
@@ -990,6 +1005,50 @@ def main() -> int:
                             100 * timing[name][0] / min(step_times['on'])))
     del trainer, fstate, runs, batch
 
+    # 14. the microbenchmark's variant sweep, the path that runs V
+    reset_launches()
+    bench_runs = [bench.run(bench.parse_args(
+        ['--variants', '--batch', str(b_), '--shape', sh]))
+        for b_, sh in V_RUNS]
+    torch.cuda.synchronize()
+    v_launches = launches()
+    # per sweep entry one parity call and two timed runs, each after a
+    # warm-up; the bench runs no backward and no K3 or K4
+    per_entry = 1 + 2 * (bench.WARM + bench.TIMED)
+    want_v = {k: 0 for k in kernels if k not in ('K1-G', 'K1-D')}
+    for name, nbs in bench.SWEEP:
+        want_v[name] = len(V_RUNS) * len(nbs) * per_entry
+    got_v = {k: v_launches[k] for k in want_v}
+    print('phase 14 bench_capsule_torch --variants x %d runs: launches %s '
+          '(K1-G %d, K1-D %d as the yardstick); want %s'
+          % (len(V_RUNS), got_v, v_launches['K1-G'], v_launches['K1-D'],
+             want_v))
+    if got_v != want_v or not (v_launches['K1-G'] and v_launches['K1-D']):
+        raise AssertionError('the variant sweep did not launch the kernels '
+                             'as expected')
+    v_record = {}
+    for res in bench_runs:
+        shape = tuple(res['shape'])
+        bound_ms, bound_by = _bound(*_k1_work(shape, shape[2] == 8))
+        rows = {(r['name'], r['nb']): r for r in res['rows']}
+        plain_ms = rows[('plain', None)]['ms']
+        for name, nbs in bench.SWEEP:
+            for nb in nbs:
+                r = rows[(name, nb)]
+                print('phase 14 %s NB=%d at %s on %s: %.4f ms, K1 %.4f ms in '
+                      'turns (%.2fx K1), plain %.4f ms, bound %.4f ms (%s), '
+                      'max_abs_err %.3e'
+                      % (name, nb, list(shape), card, r['ms'], r['k1_ms'],
+                         r['ms'] / r['k1_ms'], plain_ms, bound_ms, bound_by,
+                         r['max_abs_err']))
+                err[name] = max(err[name], r['max_abs_err'])
+                rec = v_record.setdefault(name, {'sweep': []})
+                rec['sweep'].append([list(shape), nb, r['ms'], r['k1_ms']])
+                if res is bench_runs[0] and r['ms'] < rec.get('ms', math.inf):
+                    rec.update(ms=r['ms'], plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               shape=list(shape), nb=nb)
+
     shutil.rmtree(WORK, ignore_errors=True)
     bad = sorted(m for m in sys.modules
                  if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax',
@@ -997,29 +1056,45 @@ def main() -> int:
     print('imported JAX or JAX-package modules: %s' % (bad or 'none'))
     if bad:
         raise AssertionError('the port imported %s' % bad)
-    sources = {'K1-G': ('capsule_routing.cu', 'capsule_pallas.py:32'),
-               'K1-D': ('capsule_routing.cu', 'capsule_pallas.py:32'),
-               'K2-G': ('capsule_routing_bwd.cu', 'capsule_pallas.py:114'),
-               'K2-D': ('capsule_routing_bwd.cu', 'capsule_pallas.py:114'),
-               'K3': ('bn_glu.cu', 'bn_glu.py:48'),
-               'K4': ('conv3x3_dw.cu', 'conv_dw.py:136')}
+    csrc, jops = 'text2img_ekl_tpu_torch/csrc/', 'text2img_ekl_tpu/ops/'
+    sources = {
+        'K1-G': (csrc + 'capsule_routing.cu', jops + 'capsule_pallas.py:32'),
+        'K1-D': (csrc + 'capsule_routing.cu', jops + 'capsule_pallas.py:32'),
+        'K2-G': (csrc + 'capsule_routing_bwd.cu',
+                 jops + 'capsule_pallas.py:114'),
+        'K2-D': (csrc + 'capsule_routing_bwd.cu',
+                 jops + 'capsule_pallas.py:114'),
+        'K3': (csrc + 'bn_glu.cu', jops + 'bn_glu.py:48'),
+        'K4': (csrc + 'conv3x3_dw.cu', jops + 'conv_dw.py:136'),
+        'V-stored': (csrc + 'capsule_variants.cu',
+                     'tools/capsule_variants.py:83'),
+        'V-seq': (csrc + 'capsule_variants.cu',
+                  'tools/capsule_variants.py:143'),
+        'V-recompute': (csrc + 'capsule_variants.cu',
+                        'tools/capsule_variants.py:218')}
     record = []
     for name, fn in kernels.items():
+        extra = {}
         if name in cc.KERNELS:
             ms, plain_ms, (flops, nbytes), shape = timing[name]
             bound_ms, bound_by = _bound(flops, nbytes)
             library_ms, shape, n = None, list(shape), train_launches[name]
+        elif name in cv.KERNELS:  # the record shape's fastest NB
+            v = v_record[name]
+            ms, plain_ms, bound_ms, bound_by = (v['ms'], v['plain_ms'],
+                                                v['bound_ms'], v['bound_by'])
+            library_ms, shape, n = None, v['shape'], v_launches[name]
+            extra = {'nb': v['nb'], 'sweep': v['sweep']}
         else:  # totals over the flagship's launches per G forward / step
             ms, plain_ms, bound_ms, bound_by, library_ms, shape = timing[name]
             n = fused_launches[name]
-        record.append({
+        record.append(dict({
             'name': '%s %s' % (name, fn.__name__), 'route': 'cuda',
-            'source': 'text2img_ekl_tpu_torch/csrc/%s' % sources[name][0],
-            'replaces': 'text2img_ekl_tpu/ops/%s' % sources[name][1],
+            'source': sources[name][0], 'replaces': sources[name][1],
             'launches': n, 'max_abs_err': err[name],
             'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
             'bound_by': bound_by, 'library_ms': library_ms,
-            'shape': shape})
+            'shape': shape}, **extra))
     print(card)
     print(json.dumps({'kernels': record}))
     print(json.dumps({'ok': True, 'device': {

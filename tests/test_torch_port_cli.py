@@ -47,8 +47,9 @@ def test_port_imports_no_jax():
         "import text2img_ekl_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
-        "for m in mods + ['main_torch', 'chip_smoke', "
-        "'tools.profile_torch_sampler']:\n"
+        "for m in mods + ['text2img_ekl_tpu_torch.ops.capsule_variants', "
+        "'main_torch', 'chip_smoke', 'tools.profile_torch_sampler', "
+        "'tools.bench_capsule_torch']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'orbax', 'text2img_ekl_tpu'))\n"
@@ -56,7 +57,7 @@ def test_port_imports_no_jax():
     proc = _run(['-c', code])
     assert proc.returncode == 0, proc.stderr
     n, bad = proc.stdout.split(maxsplit=1)
-    assert int(n) >= 22 and bad.strip() == '[]', proc.stdout
+    assert int(n) >= 23 and bad.strip() == '[]', proc.stdout
 
 
 def _tiny_cfg(tmp_path, **test):

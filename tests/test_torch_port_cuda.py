@@ -14,6 +14,10 @@ unit-variance (scaled by 1/sqrt(in_length / 8), so that votes stay
 unit-scale at in_length 512), where the routing is well conditioned; much larger
 weights saturate the softmax and float32 itself drifts past 1e-4.
 
+The variants V (``ops/capsule_variants.py``) compute K1's function and
+are held to the plain routing at K1's bar, at the two head shapes with a
+batch that no swept NB > 1 divides.
+
 K2 is held to autograd through the plain routing at |d| <= 1e-3 |ref| +
 1e-4 max|ref| for dx and for dW: the backward sums over more terms (dW
 over every sample and input capsule) and the softmax pullback subtracts
@@ -38,6 +42,7 @@ import torch
 from text2img_ekl_tpu_torch.config import cfg_from_file
 from text2img_ekl_tpu_torch.ops import bn_glu
 from text2img_ekl_tpu_torch.ops import capsule_cuda as cc
+from text2img_ekl_tpu_torch.ops import capsule_variants as cv
 from text2img_ekl_tpu_torch.ops import conv_dw
 from text2img_ekl_tpu_torch.ops.capsule import capsule_linear
 from text2img_ekl_tpu_torch.ops.capsule_cuda import capsule_routing
@@ -167,6 +172,63 @@ def test_kernels_raise_on_what_they_do_not_take(card):
             capsule_routing(x, w.cpu())
         with pytest.raises(ValueError):  # factored form: > 512 in capsules
             capsule_routing(torch.zeros((1, 600, 8), device=card), w)
+
+
+# the NB values tools/bench_capsule_torch.py sweeps (its SWEEP)
+V_SWEEP = [('forward_stored', 8), ('forward_stored', 1), ('forward_seq', 2),
+           ('forward_seq', 4), ('forward_seq', 1), ('forward_recompute', 8),
+           ('forward_recompute', 16), ('forward_recompute', 32),
+           ('forward_recompute', 1)]
+
+
+@pytest.mark.parametrize('shape', [
+    (35, 48, 8, 1024, 32),    # generator head, ragged for every NB > 1
+    (35, 16, 512, 201, 16),   # discriminator class head, ragged
+])
+@pytest.mark.parametrize('name,nb', V_SWEEP)
+def test_variants_match_plain_routing(card, shape, name, nb):
+    bsz, in_caps, in_len, out_caps, out_len = shape
+    x, w = _inputs((bsz, in_caps, in_len), (out_caps, out_len, in_len), card,
+                   seed=4)
+    fn = getattr(cv, name)
+    before = fn.launches
+    with torch.no_grad():
+        out = fn(x, w, 3, nb=nb)
+        ref = capsule_linear(x, w, 3, 'dynamic')
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert out.shape == (bsz, out_caps, out_len)
+    assert_k1_close(out, ref)
+
+
+@pytest.mark.parametrize('in_len', [8, 64])
+def test_variants_iteration_counts(card, in_len):
+    x, w = _inputs((5, 16, in_len), (256, 32, in_len), card, seed=5)
+    with torch.no_grad():
+        for iters in (1, 2, 5):
+            ref = capsule_linear(x, w, iters, 'dynamic')
+            for name in ('forward_stored', 'forward_seq',
+                         'forward_recompute'):
+                assert_k1_close(getattr(cv, name)(x, w, iters, nb=3), ref)
+
+
+def test_variants_raise_on_what_they_do_not_take(card):
+    x, w = _inputs((2, 6, 8), (10, 32, 8), card)
+    for name in ('forward_stored', 'forward_seq', 'forward_recompute'):
+        fn = getattr(cv, name)
+        with pytest.raises(RuntimeError, match='no backward'):
+            fn(x.clone().requires_grad_(True), w)
+        with torch.no_grad():
+            with pytest.raises(ValueError):  # x on the card, W on the CPU
+                fn(x, w.cpu())
+            with pytest.raises(TypeError):
+                fn(x.double(), w.double())
+            with pytest.raises(ValueError):  # out_length 8
+                fn(x, w[:, :8].contiguous())
+            with pytest.raises(ValueError):  # not contiguous
+                fn(x.transpose(0, 1), w)
+            with pytest.raises(ValueError):  # nb
+                fn(x, w, nb=0)
 
 
 def _tiny_step_metrics(card, **switches):

@@ -88,49 +88,50 @@ def _check_launch(err: int, name: str) -> None:
         raise RuntimeError('%s failed to launch: CUDA error %d' % (name, err))
 
 
-def _check_smem(need: int, what: str) -> None:
+def _check_smem(need: int, what: str, who: str = 'capsule_routing') -> None:
     if need > MAX_SMEM_BYTES:
-        raise ValueError('capsule_routing: %s needs %d bytes of shared '
-                         'memory, more than %d' % (what, need, MAX_SMEM_BYTES))
+        raise ValueError('%s: %s needs %d bytes of shared memory, more than '
+                         '%d' % (who, what, need, MAX_SMEM_BYTES))
 
 
-def _shapes(x: torch.Tensor, weight: torch.Tensor,
-            num_iterations: int) -> Tuple[int, int, int, int, int]:
+def _shapes(x: torch.Tensor, weight: torch.Tensor, num_iterations: int,
+            who: str = 'capsule_routing',
+            factored_limit: bool = True) -> Tuple[int, int, int, int, int]:
     """Validate CUDA arguments; returns (B, in, in_length, out,
-    out_length)."""
+    out_length). ``who`` names the caller in the errors; ``factored_limit``
+    applies the factored kernels' input-capsule limit at in_length 8."""
     if x.device.type != 'cuda' or weight.device != x.device:
-        raise ValueError('capsule_routing: x and weight must both be on the '
-                         'CPU or on one CUDA device, got %s and %s'
-                         % (x.device, weight.device))
+        raise ValueError('%s: x and weight must both be on the CPU or on one '
+                         'CUDA device, got %s and %s'
+                         % (who, x.device, weight.device))
     if x.dtype != torch.float32 or weight.dtype != torch.float32:
-        raise TypeError('capsule_routing: float32 only, got %s and %s'
-                        % (x.dtype, weight.dtype))
+        raise TypeError('%s: float32 only, got %s and %s'
+                        % (who, x.dtype, weight.dtype))
     if x.dim() != 3 or weight.dim() != 3:
-        raise ValueError('capsule_routing: x [B, in, L] and weight '
-                         '[out, out_length, L], got %s and %s'
-                         % (tuple(x.shape), tuple(weight.shape)))
+        raise ValueError('%s: x [B, in, L] and weight [out, out_length, L], '
+                         'got %s and %s'
+                         % (who, tuple(x.shape), tuple(weight.shape)))
     bsz, in_caps, in_len = x.shape
     out_caps, out_len, w_in_len = weight.shape
     if in_len != w_in_len:
-        raise ValueError('capsule_routing: in_length %d != weight in_length '
-                         '%d' % (in_len, w_in_len))
+        raise ValueError('%s: in_length %d != weight in_length %d'
+                         % (who, in_len, w_in_len))
     if out_len not in OUT_LENGTHS:
-        raise ValueError('capsule_routing: the kernels take out_length in '
-                         '%s, got %d' % (OUT_LENGTHS, out_len))
+        raise ValueError('%s: the kernels take out_length in %s, got %d'
+                         % (who, OUT_LENGTHS, out_len))
     if in_caps < 1 or out_caps < 1 or in_len < 1:
-        raise ValueError('capsule_routing: empty capsule dimension in %s x %s'
-                         % (tuple(x.shape), tuple(weight.shape)))
-    if in_len == FACTORED_IN_LENGTH and in_caps > MAX_IN_CAPSULES:
-        raise ValueError('capsule_routing: the factored kernels take at '
-                         'most %d input capsules, got %d'
-                         % (MAX_IN_CAPSULES, in_caps))
+        raise ValueError('%s: empty capsule dimension in %s x %s'
+                         % (who, tuple(x.shape), tuple(weight.shape)))
+    if factored_limit and in_len == FACTORED_IN_LENGTH and \
+            in_caps > MAX_IN_CAPSULES:
+        raise ValueError('%s: the factored kernels take at most %d input '
+                         'capsules, got %d' % (who, MAX_IN_CAPSULES, in_caps))
     if num_iterations < 1:
-        raise ValueError('capsule_routing: num_iterations >= 1')
+        raise ValueError('%s: num_iterations >= 1' % who)
     if not (x.is_contiguous() and weight.is_contiguous()):
-        raise ValueError('capsule_routing: x and weight must be contiguous')
+        raise ValueError('%s: x and weight must be contiguous' % who)
     if x.data_ptr() % 16 or weight.data_ptr() % 16:
-        raise ValueError('capsule_routing: x and weight must be 16-byte '
-                         'aligned')
+        raise ValueError('%s: x and weight must be 16-byte aligned' % who)
     return bsz, in_caps, in_len, out_caps, out_len
 
 
