@@ -37,9 +37,10 @@ found; any failure raises and exits non-zero:
  10. hold K3 (the fused BN+GLU) to its plain version at every flagship
      tail shape, bfloat16 and float32, and time both;
  11. hold K4 (the 3x3 conv weight gradient) to its plain version at every
-     flagship shape inside the envelope, bfloat16 and float32, and time
-     both and cuDNN's weight gradient (the yardstick; the port never calls
-     it);
+     flagship shape inside the envelope, bfloat16 and float32, check that
+     two calls on the same inputs are bit-identical, and time it in turns
+     with cuDNN's weight gradient (the yardstick; the port never calls it)
+     and the plain version, with each time over its bound and over cuDNN's;
  12. the flagship sampler with TPU_FUSED_BN_GLU on (eval mode, B=320):
      K3's launches per call, images against the unfused sampler on the
      same weights, both timed in turns;
@@ -839,10 +840,13 @@ def main() -> int:
             wgt = torch.randn((f, c_, 3, 3), device=dev).to(dtype)
             before = conv_dw.dw3x3_kernel.launches
             out = conv_dw.dw3x3(x, dy)
+            again = conv_dw.dw3x3(x, dy)
             ref = conv_dw.dw3x3_reference(x, dy)
             torch.cuda.synchronize()
-            if conv_dw.dw3x3_kernel.launches != before + 1:
+            if conv_dw.dw3x3_kernel.launches != before + 2:
                 raise AssertionError('K4 did not launch')
+            if not torch.equal(out, again):
+                raise AssertionError('K4: two calls on the same inputs differ')
             max_abs, max_rel, scale, ok = _errors(out, ref, K4_RTOL, K4_ATOL)
 
             def library():
@@ -854,8 +858,8 @@ def main() -> int:
             lib_abs, _, _, _ = _errors(lib, ref, K4_RTOL, K4_ATOL)
             best = _best_ms({
                 'kernel': lambda: conv_dw.dw3x3_kernel(x, dy),
-                'plain': lambda: conv_dw.dw3x3_reference(x, dy),
-                'library': library}, iters=10)
+                'library': library,
+                'plain': lambda: conv_dw.dw3x3_reference(x, dy)}, iters=10)
             flops, nbytes = _k4_work(x_shape, f, x.element_size())
             bound_ms, bound_by = _bound(
                 flops, nbytes,
@@ -864,25 +868,30 @@ def main() -> int:
                                        bound_ms, best['library'][0], bound_by)
             print('phase 11 K4 %s x %s dy %s: max|ref| %.3e, max_abs_err '
                   '%.3e, max_rel_err %.3e (cuDNN wgrad max_abs_err %.3e); '
-                  'bound |d| <= %.0e |ref| + %.0e max|ref|: %s; kernel %.4f '
-                  'ms, plain %.4f ms, cuDNN wgrad %.4f ms (best of 2 x 10), '
-                  'bound %.4f ms (%s)'
+                  'bound |d| <= %.0e |ref| + %.0e max|ref|: %s; two calls '
+                  'bit-identical; kernel %.4f ms, cuDNN wgrad %.4f ms, plain '
+                  '%.4f ms (best of 2 x 10, in turns), bound %.4f ms (%s); '
+                  'kernel / bound %.2f, kernel / cuDNN %.3f'
                   % (str(dtype).split('.')[-1], list(x_shape),
                      [b_, f, h_, w_], scale, max_abs, max_rel, lib_abs,
                      K4_RTOL, K4_ATOL, 'ok' if ok else 'FAIL',
-                     best['kernel'][0], best['plain'][0],
-                     best['library'][0], bound_ms, bound_by))
+                     best['kernel'][0], best['library'][0],
+                     best['plain'][0], bound_ms, bound_by,
+                     best['kernel'][0] / bound_ms,
+                     best['kernel'][0] / best['library'][0]))
             if not ok:
                 raise AssertionError('K4 disagrees with its plain version')
             if dtype == torch.bfloat16:
                 err['K4'] = max(err['K4'], max_abs)
-            del x, dy, out, ref, lib
+            del x, dy, out, again, ref, lib
     for dtype in (torch.bfloat16, torch.float32):
         tot = [sum(k4[(dtype, xs, f)][i] * n for xs, f, n in K4_SHAPES)
                for i in range(4)]
         print('phase 11 K4 per step (5 launches), %s: kernel %.4f ms, plain '
-              '%.4f ms, bound %.4f ms, cuDNN wgrad %.4f ms'
-              % (str(dtype).split('.')[-1], *tot))
+              '%.4f ms, bound %.4f ms, cuDNN wgrad %.4f ms; kernel / bound '
+              '%.2f, kernel / cuDNN %.3f'
+              % (str(dtype).split('.')[-1], *tot, tot[0] / tot[2],
+                 tot[0] / tot[3]))
         if dtype == torch.bfloat16:
             timing['K4'] = (tot[0], tot[1], tot[2], max(
                 (k4[(dtype, xs, f)][2], k4[(dtype, xs, f)][4])

@@ -49,7 +49,7 @@ def test_port_imports_no_jax():
         "p.__name__ + '.')]\n"
         "for m in mods + ['text2img_ekl_tpu_torch.ops.capsule_variants', "
         "'main_torch', 'chip_smoke', 'tools.profile_torch_sampler', "
-        "'tools.bench_capsule_torch']:\n"
+        "'tools.bench_capsule_torch', 'tools.bench_conv_dw_torch']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'orbax', 'text2img_ekl_tpu'))\n"
@@ -133,6 +133,23 @@ def test_eval_trainer_honours_the_kernel_switches(tmp_path):
     save_dir = trainer.evaluate(max_batches=1)
     files = os.listdir(os.path.join(save_dir, 'single_samples', 'synthetic'))
     assert len(files) == 2 * 10
+
+
+@pytest.mark.parametrize('bn_dtype', ['bfloat16', 'float32'])
+def test_trainer_says_once_that_batchnorm_runs_in_float32(tmp_path, capsys,
+                                                          bn_dtype):
+    """ROADMAP F13: the port normalises in float32 whatever TPU_BN_DTYPE
+    asks; a trainer built from a config with bf16 BatchNorm IO (the JAX
+    package's default) says so once, one with float32 says nothing."""
+    from text2img_ekl_tpu_torch.train.trainer import CondGANTrainer
+    cfg = _tiny_cfg(tmp_path)
+    cfg.TPU_BN_DTYPE = bn_dtype
+    capsys.readouterr()
+    CondGANTrainer(cfg, str(tmp_path / 'out'), data_loader=_loader(cfg, 2),
+                   device='cpu')
+    out = capsys.readouterr().out
+    assert out.count('TPU_BN_DTYPE') == (bn_dtype == 'bfloat16')
+    assert out.count('normalises in float32') == (bn_dtype == 'bfloat16')
 
 
 def test_cli_refuses_what_is_not_ported_or_not_there(tmp_path):

@@ -30,7 +30,8 @@ K3 (fused BN+GLU) is held to ``bn_glu_reference``: float32 at rtol/atol
 the fused multiply-add's rounding differ); bfloat16 within one bfloat16
 ulp of the reference (both round one float32 value once). K4 (3x3 conv
 weight gradient) is held to ``dw3x3_reference`` at |d| <= 1e-3 |ref| + 1e-4
-max|ref|: float32 sums over B*H*W up to 524,288 terms in another order.
+max|ref|: float32 sums over B*H*W up to 524,288 terms in another order;
+two calls on the same inputs must agree bit for bit (fixed-order split-K).
 """
 
 import os
@@ -381,6 +382,80 @@ def test_k4_matches_reference(card, shape, dtype):
     assert conv_dw.dw3x3_kernel.launches == before + 1
     assert out.shape == (f, c, 3, 3) and out.dtype == torch.float32
     assert_k4_close(out, ref)
+
+
+def _k4_inputs(shape, dtype, device, seed=3):
+    b, c, h, f = shape
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, c, h, h), dtype=np.float32))
+    dy = torch.from_numpy(rng.standard_normal((b, f, h, h), dtype=np.float32))
+    return x.to(device).to(dtype), dy.to(device).to(dtype)
+
+
+@pytest.mark.parametrize('w', [32, 64, 128, 256, 512])
+@pytest.mark.parametrize('c', [3, 16, 64])
+@pytest.mark.parametrize('bf', [(1, 72), (3, 8), (32, 128), (3, 64)])
+def test_k4_bf16_at_ragged_shapes(card, w, c, bf):
+    """The bf16 body (TMA + wgmma) inside the envelope: one-slab to
+    eight-slab rows (W 32 takes 32-column K-steps), channel counts that
+    leave most of a 64-row TMA box out of bounds, F below, at and across
+    64-row f tiles."""
+    b, f = bf
+    b = min(b, {256: 8, 512: 1}.get(w, b))  # keep the large maps small
+    x, dy = _k4_inputs((b, c, w, f), torch.bfloat16, card)
+    before = conv_dw.dw3x3_kernel.launches
+    out = conv_dw.dw3x3(x, dy)
+    ref = conv_dw.dw3x3_reference(x, dy)
+    torch.cuda.synchronize()
+    assert conv_dw.dw3x3_kernel.launches == before + 1
+    assert_k4_close(out, ref)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape,sms', [
+    ((3, 16, 32, 64), 5),     # runs of 20 rows start inside images 0 and 1
+    ((3, 16, 128, 64), 7),    # runs of 110 K-steps cross slabs and images
+])
+def test_k4_split_boundaries_mid_image(card, shape, sms, dtype):
+    """Plans for fewer SMs than the card has put split boundaries inside
+    an image (and, at 128 px, across column slabs and images), where a
+    run re-loads the x rows above its first row."""
+    b, c, h, f = shape
+    x, dy = _k4_inputs(shape, dtype, card)
+    p = conv_dw.plan(b, c, h, h, f, dtype == torch.bfloat16, sms)
+    assert p.chunk % h != 0
+    out = conv_dw.run_plan(x, dy, p)
+    torch.cuda.synchronize()
+    assert_k4_close(out, conv_dw.dw3x3_reference(x, dy))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_k4_is_deterministic(card, dtype):
+    """Split-K partials summed in a fixed order, no atomics: two calls on
+    the same inputs give the same bits."""
+    x, dy = _k4_inputs((32, 64, 64, 128), dtype, card)
+    first = conv_dw.dw3x3(x, dy)
+    second = conv_dw.dw3x3(x, dy)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_k4_refused_launch_raises(card):
+    """What the library refuses raises and counts no launch: a bf16 tensor
+    whose data is not 16-byte aligned (TMA cannot map it), and a split
+    plan that leaves K-steps out."""
+    x, dy = _k4_inputs((2, 16, 32, 8), torch.bfloat16, card)
+    shifted = torch.empty(x.numel() + 1, device=card, dtype=x.dtype)
+    shifted[1:].copy_(x.flatten())
+    x_odd = shifted[1:].view(x.shape)
+    assert x_odd.is_contiguous() and x_odd.data_ptr() % 16 != 0
+    before = conv_dw.dw3x3_kernel.launches
+    with pytest.raises(RuntimeError, match='failed to launch'):
+        conv_dw.dw3x3(x_odd, dy)
+    p = conv_dw.plan(2, 16, 32, 32, 8, True, 4)
+    with pytest.raises(RuntimeError, match='failed to launch'):
+        conv_dw.run_plan(x, dy, p._replace(splits=p.splits - 1))
+    assert conv_dw.dw3x3_kernel.launches == before
 
 
 def test_conv3x3_dw_backward_matches_plain_autograd(card):

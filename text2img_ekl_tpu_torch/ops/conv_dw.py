@@ -9,9 +9,10 @@ and ``dw3x3_v2`` (``_dw_kernel_v2``), two TPU bodies of one function,
 accumulated in float32, and ``conv3x3_dw``, the conv whose custom VJP
 computes dW with it. The port's layouts are PyTorch's: x [B, C, H, W], dy
 [B, F, H, W], dW [F, C, 3, 3] (the conv weight's). The kernel
-(``csrc/conv3x3_dw.cu``) contracts bfloat16 inputs on the tensor cores and
-float32 inputs on the SIMT cores, both with float32 accumulators, into
-split-K partial sums in a scratch and a fixed-order sum of them.
+(``csrc/conv3x3_dw.cu``) contracts bfloat16 inputs on the tensor cores
+(TMA-fed ``wgmma``) and float32 inputs on the SIMT cores, both with float32
+accumulators, into split-K partial sums in a scratch and a fixed-order sum
+of them; ``plan`` is the split that the wrapper hands it.
 
 ``dw3x3`` runs ``dw3x3_reference`` for tensors on the CPU, and only there;
 for CUDA tensors it launches the kernel or raises, also on a shape outside
@@ -22,6 +23,7 @@ uses to route exactly as the JAX package does.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -32,9 +34,43 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (text2img_ekl_tpu/ops/conv_dw.py:_TILE_FOR_W) row tile per width: the
 # envelope needs H divisible by it
 _TILE_FOR_W = {32: 32, 64: 64, 128: 128, 256: 64, 512: 16}
-# the kernel's block tile (csrc/conv3x3_dw.cu): 64 output x 32 input
-# channels, slabs of at most 64 columns; blocks in flight per SM
-TILE_F, TILE_C, MAX_SLAB_COLS, BLOCKS_PER_SM = 64, 32, 64, 2
+# the kernel's tiles (csrc/conv3x3_dw.cu). A K-step is one image row segment
+# of min(W, 64) columns. bf16: a block owns 64 output x all (<= 64) input
+# channels x 9 taps, one block per SM; float32 (SIMT): 64 x 32 channels, two
+# blocks per SM.
+TILE_F, MAX_SLAB_COLS = 64, 64
+F32_TILE_C, F32_BLOCKS_PER_SM = 32, 2
+
+
+class DwPlan(NamedTuple):
+    """How K4 splits one call: ``steps`` K-steps of ``slab_cols`` columns,
+    ``tiles`` output tiles, each summed by ``splits`` blocks over runs of
+    ``chunk`` K-steps (the last run may be shorter, none is empty); the
+    float32 scratch holds ``partial_numel`` = splits x F x C x 9 values."""
+    slab_cols: int
+    steps: int
+    tiles: int
+    splits: int
+    chunk: int
+    partial_numel: int
+
+
+def plan(B: int, C: int, H: int, W: int, F: int, bf16: bool,
+         sms: int) -> DwPlan:
+    """Enough (tile, split) blocks to fill ``sms`` SMs (bf16: once, float32:
+    F32_BLOCKS_PER_SM times), at least one K-step each."""
+    cols = min(W, MAX_SLAB_COLS)
+    steps = B * H * (W // cols)
+    tiles = -(-F // TILE_F)
+    per_sm = 1
+    if not bf16:
+        tiles *= -(-C // F32_TILE_C)
+        per_sm = F32_BLOCKS_PER_SM
+    want = max(1, min(steps, -(-per_sm * sms // tiles)))
+    chunk = -(-steps // want)
+    splits = -(-steps // chunk)
+    return DwPlan(cols, steps, tiles, splits, chunk, splits * F * C * 9)
+
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _fn = None
@@ -45,10 +81,15 @@ def _kernel():
     global _fn
     if _fn is None:
         f = _build.library('conv3x3_dw').conv3x3_dw
-        f.argtypes = [_P] * 4 + [_I] * 8 + [_P]
+        f.argtypes = [_P] * 4 + [_I] * 9 + [_P]
         f.restype = ctypes.c_int
         _fn = f
     return _fn
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()
 
 
 def dw_supported(H: int, W: int, C: int, F: int) -> bool:
@@ -70,14 +111,6 @@ def dw3x3_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
                          xp[:, :, ky:ky + h, kx:kx + w])
             for ky in range(3) for kx in range(3)]
     return torch.stack(taps, -1).view(dy.shape[1], x.shape[1], 3, 3)
-
-
-def splits_for(B: int, C: int, H: int, W: int, F: int, sms: int) -> int:
-    """Split-K factor: enough (tile, split) blocks to fill every SM
-    BLOCKS_PER_SM times, at most one slab (an image row segment) each."""
-    tiles = -(-F // TILE_F) * -(-C // TILE_C)
-    slabs = B * H * (W // min(W, MAX_SLAB_COLS))
-    return max(1, min(slabs, -(-BLOCKS_PER_SM * sms // tiles)))
 
 
 def dw3x3(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
@@ -108,19 +141,27 @@ def dw3x3_kernel(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
                          'envelope (dw_supported)' % (h, w, c, f))
     if not (x.is_contiguous() and dy.is_contiguous()):
         raise ValueError('dw3x3: x and dy must be contiguous')
-    out = torch.empty((f, c, 3, 3), device=x.device, dtype=torch.float32)
     if bsz == 0:
-        return out.zero_()
-    dev = x.device.index if x.device.index is not None else \
-        torch.cuda.current_device()
+        return torch.zeros((f, c, 3, 3), device=x.device, dtype=torch.float32)
+    dev = _device_index(x.device)
     if dev not in _sms:
         _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = splits_for(bsz, c, h, w, f, _sms[dev])
-    partial = torch.empty(splits * f * c * 9, device=x.device,
+    return run_plan(x, dy, plan(bsz, c, h, w, f, x.dtype == torch.bfloat16,
+                                _sms[dev]))
+
+
+def run_plan(x: torch.Tensor, dy: torch.Tensor, p: DwPlan) -> torch.Tensor:
+    """Launch K4 with the split ``p`` on inputs that ``dw3x3_kernel`` has
+    checked; raises where the library refuses the launch."""
+    bsz, c, h, w = x.shape
+    f = dy.shape[1]
+    out = torch.empty((f, c, 3, 3), device=x.device, dtype=torch.float32)
+    partial = torch.empty(p.partial_numel, device=x.device,
                           dtype=torch.float32)
     err = _kernel()(x.data_ptr(), dy.data_ptr(), partial.data_ptr(),
-                    out.data_ptr(), bsz, c, h, w, f, splits, DTYPES[x.dtype],
-                    dev, torch.cuda.current_stream(x.device).cuda_stream)
+                    out.data_ptr(), bsz, c, h, w, f, p.splits, p.chunk,
+                    DTYPES[x.dtype], _device_index(x.device),
+                    torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError('conv3x3_dw failed to launch: CUDA error %d' % err)
     dw3x3_kernel.launches += 1

@@ -28,7 +28,8 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUPS = (('K3 fused BN+GLU', ('bn_glu_kernel',)),
-          ('K4 conv weight gradient', ('dw_partial', 'dw_reduce')),
+          ('K4 conv weight gradient', ('dw_wgmma', 'dw_partial',
+                                       'dw_reduce')),
           ('K1-G capsule routing', ('routing_fwd_kernel',)),
           ('K1-D capsule routing', ('routing_votes_fwd_kernel',)),
           ('K2-G routing backward', ('routing_bwd_factored_kernel',
