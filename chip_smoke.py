@@ -8,7 +8,9 @@ an H100: the kernels compile for sm_90a). Phases, each printing what it
 found; any failure raises and exits non-zero:
 
   1. build the CUDA kernels from text2img_ekl_tpu_torch/csrc with nvcc, one
-     process per source, all at once;
+     process per source, all at once; print ptxas's registers and spills
+     per kernel and, from cuobjdump -sass, the tensor-core instructions of
+     K2-D's product kernels;
   2. hold the factored capsule-routing forward (K1-G) to the plain PyTorch
      routing on the card, float32 with TF32 off, at the flagship generator
      shape and a ragged one;
@@ -25,7 +27,9 @@ found; any failure raises and exits non-zero:
   6. hold K1-D (the votes form, the discriminator class head) to the plain
      routing at B=32 and at a ragged shape;
   7. hold K2-G and K2-D (the backward kernels) to autograd through the
-     plain routing at B=32, and time kernels and plain versions;
+     plain routing at B=32, and time kernels and plain versions; K2-D both
+     with dx and dW and with dx only, with its plan (cluster size, blocks)
+     and its bound split into the 3xTF32 products and the routing;
   8. drive the training path: CondGANTrainer.train(max_steps=3) on
      cfg/birds_2stg_splitz_cap_ca.realcls.yml at full width (GF_DIM and
      DF_DIM 64, batch 32, 64 and 128 px, bf16 compute) on synthetic data;
@@ -144,6 +148,52 @@ MOMENT_RTOL, MOMENT_ATOL = 1e-2, 1e-5
 # dense bfloat16 on the tensor cores (the bound of a bf16 kernel: the TPU
 # kernels contract bf16 on the matrix unit) and device-memory bandwidth
 F32_FLOPS, BF16_FLOPS, HBM_BYTES = 67e12, 989e12, 3.35e12
+# dense TF32 on the tensor cores: K2-D's products run there, each float32
+# product as three tf32 ones (3xTF32)
+TF32_FLOPS = 495e12
+
+
+def _cuobjdump():
+    """The toolkit's cuobjdump, or Triton's copy of it."""
+    import importlib.util
+    found = shutil.which('cuobjdump')
+    cands = [found] if found else []
+    home = os.environ.get('CUDA_HOME') or '/usr/local/cuda'
+    cands.append(os.path.join(home, 'bin', 'cuobjdump'))
+    spec = importlib.util.find_spec('triton')
+    if spec and spec.origin:
+        cands.append(os.path.join(os.path.dirname(spec.origin), 'backends',
+                                  'nvidia', 'bin', 'cuobjdump'))
+    for c in cands:
+        if os.path.exists(c):
+            return c
+    raise RuntimeError('cuobjdump not found (PATH, $CUDA_HOME/bin, '
+                       'triton): the SASS of K2-D cannot be shown')
+
+
+def _tensor_core_sass(lib):
+    """{K2-D product kernel (mangled name): {tensor-core opcode: count}}
+    from cuobjdump -sass of ``lib``; raises where a product kernel has
+    none of the tf32 MMA instructions (HGMMA / HMMA ... TF32)."""
+    sass = subprocess.run([_cuobjdump(), '-sass', str(lib)],
+                          capture_output=True, text=True,
+                          check=True).stdout
+    found, fn = {}, None
+    for line in sass.splitlines():
+        if 'Function :' in line:
+            fn = line.split('Function :')[1].strip()
+            if 'gemm_tf32x3' in fn and 'gemm_kernel' in fn:
+                found[fn] = {}
+            continue
+        if fn in found:
+            for word in line.replace(';', ' ').split():
+                if word.startswith(('HGMMA', 'HMMA')):
+                    found[fn][word] = found[fn].get(word, 0) + 1
+    if not found or not all(any('TF32' in op for op in ops)
+                            for ops in found.values()):
+        raise AssertionError('K2-D product kernels without tf32 tensor-core '
+                             'instructions: %s' % found)
+    return found
 
 
 def _errors(out, ref, rtol, atol):
@@ -208,7 +258,13 @@ def _best_ms(fns, iters=20):
 
 def _bound(flops, nbytes, peak=F32_FLOPS):
     """(least ms, what bounds it) from operations and bytes."""
-    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES
+    return _bound_parts([(flops, peak)], nbytes)
+
+
+def _bound_parts(parts, nbytes):
+    """(least ms, what bounds it) of work done in parts [(operations,
+    peak of the units that do them)] that moves ``nbytes``."""
+    t_ops, t_bytes = sum(f / p for f, p in parts), nbytes / HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops >= t_bytes
                                        else 'bytes')
 
@@ -232,22 +288,33 @@ def _k1_work(shape, factored):
 
 
 def _k2_work(shape, factored):
-    """(flops, bytes) of one routing backward: the forward recomputed, the
-    reverse passes (about 2.5x a forward pass: squash, softmax and
-    agreement pullbacks) and the weight gradient (the sum over the batch:
-    factored 2 (2R-1) B J O L for the outer products; votes form two more
-    products of the vote size). Bytes: x, W and dv read, dx and dW
-    written."""
+    """Work of one routing backward: the forward recomputed, the reverse
+    passes (about 2.5x a forward pass: squash, softmax and agreement
+    pullbacks) and the weight gradient (the sum over the batch). Bytes: x,
+    W and dv read, dx and dW written. Factored form: (flops, bytes), with 2
+    (2R-1) B J O L for dW's outer products. Votes form: ((flops of the
+    three products u = x W^T, dx = du W, dW = du^T x, each 2 B I L J O;
+    flops of the routing, R B (10 I J O + 9 I J + 9 J O)), bytes)."""
     b, i, l, j, o = shape
-    fwd, _ = _k1_work(shape, factored)
     nbytes = 4 * (2 * b * i * l + 2 * j * o * l + b * j * o)
     if factored:
+        fwd, _ = _k1_work(shape, factored)
         rev = ITERS * b * ((10 * l + 6) * i * j + 8 * o * l * j) \
             + 2 * (2 * ITERS - 1) * b * j * o * l
-    else:
-        rev = ITERS * b * (6 * i * j * o + 6 * i * j + 6 * j * o) \
-            + 4 * b * i * l * j * o
-    return fwd + rev, nbytes
+        return fwd + rev, nbytes
+    return ((6 * b * i * l * j * o,
+             ITERS * b * (10 * i * j * o + 9 * i * j + 9 * j * o)), nbytes)
+
+
+def _k2d_bound(shape):
+    """K2-D's (least ms, what bounds it, products ms, routing ms, bytes
+    ms): the products at the TF32 tensor-core peak, done three times
+    (3xTF32), the routing at the float32 SIMT peak."""
+    (products, routing), nbytes = _k2_work(shape, False)
+    bound_ms, bound_by = _bound_parts(
+        [(3 * products, TF32_FLOPS), (routing, F32_FLOPS)], nbytes)
+    return (bound_ms, bound_by, 3 * products / TF32_FLOPS * 1e3,
+            routing / F32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3)
 
 
 def _k3_work(shape, itemsize):
@@ -389,6 +456,12 @@ def main() -> int:
         for line in lib.with_suffix('.log').read_text().splitlines():
             if 'registers' in line or 'spill' in line or 'entry' in line:
                 print('  ptxas: %s' % line.strip())
+    sass = _tensor_core_sass(libs['capsule_routing_bwd'])
+    print('phase 1 SASS (cuobjdump -sass): K2-D\'s %d product kernels '
+          '(gemm_tf32x3::gemm_kernel, one per operand layout and copy '
+          'width) issue %s' % (len(sass), '; '.join(sorted({', '.join(
+              '%d x %s' % (n, op) for op, n in sorted(ops.items()))
+              for ops in sass.values()}))))
 
     # 2. K1-G against the plain routing
     rng = np.random.default_rng(0)
@@ -621,14 +694,52 @@ def main() -> int:
                 raise AssertionError('%s %s disagrees with plain autograd'
                                      % (name, what))
             err[name] = max(err[name], max_abs)
-        best = _best_ms({
-            'kernel': lambda: kernel(x, w, dv, ITERS, True, True),
-            'plain': plain}, iters=10)
+        fns = {'kernel': lambda: kernel(x, w, dv, ITERS, True, True),
+               'plain': plain}
+        if name == 'K2-D':  # dx only: the generator phase of the step
+            got, none = kernel(x, w, dv, ITERS, True, False)
+            max_abs, max_rel, scale, ok = _errors(got, ref_dx, K2_RTOL,
+                                                  K2_ATOL)
+            print('phase 7 K2-D %s dx only: max_abs_err %.3e; bound |d| <= '
+                  '%.0e |ref| + %.0e max|ref|: %s' % (
+                      shape, max_abs, K2_RTOL, K2_ATOL,
+                      'ok' if ok and none is None else 'FAIL'))
+            if not ok or none is not None:
+                raise AssertionError('K2-D with dx only disagrees with plain '
+                                     'autograd')
+            fns['kernel dx only'] = lambda: kernel(x, w, dv, ITERS, True,
+                                                   False)
+        best = _best_ms(fns, iters=10)
         timing[name] = (best['kernel'][0], best['plain'][0],
                         _k2_work(shape, name == 'K2-G'), shape)
-        print('phase 7 %s at %s on %s: kernel %.4f ms, plain autograd '
-              '(forward + backward) %.4f ms (best of 2 x 10)'
-              % (name, shape, card, best['kernel'][0], best['plain'][0]))
+        print('phase 7 %s at %s on %s: kernel %.4f ms%s, plain autograd '
+              '(forward + backward) %.4f ms (best of 2 x 10, in turns)'
+              % (name, shape, card, best['kernel'][0],
+                 '' if name == 'K2-G' else ' with dx and dW, %.4f ms with '
+                 'dx only' % best['kernel dx only'][0], best['plain'][0]))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = cc.votes_bwd_plan(*D_HEAD, ITERS, sms)
+    bound_ms, bound_by, prod_ms, route_ms, bytes_ms = _k2d_bound(D_HEAD)
+    (products, routing), nbytes = _k2_work(D_HEAD, False)
+    f32_ms = _bound(products + routing, nbytes)[0]
+    print('phase 7 K2-D plan on %d SMs: routing on clusters of %d blocks, %d '
+          'blocks in all, %d B of shared memory a block (votes in it: %s); '
+          'dx product split %d ways' % (sms, plan.cluster, plan.blocks,
+                                        plan.smem_bytes, plan.votes_in_smem,
+                                        plan.dx_splits))
+    print('phase 7 K2-D bound %.4f ms (%s): products %.3f GFLOP done three '
+          'times (3xTF32) at %.0f TFLOP/s %.4f ms + routing %.4f GFLOP at %.0f '
+          'TFLOP/s %.4f ms; bytes %.2f MB at %.2f TB/s %.4f ms (all at the '
+          'float32 peak, as before the tensor cores: %.4f ms); kernel / '
+          'bound %.2f' % (bound_ms, bound_by, products / 1e9,
+                          TF32_FLOPS / 1e12, prod_ms, routing / 1e9,
+                          F32_FLOPS / 1e12, route_ms, nbytes / 1e6,
+                          HBM_BYTES / 1e12, bytes_ms, f32_ms,
+                          timing['K2-D'][0] / bound_ms))
+    k2d_extra = {'ms_dx_only': best['kernel dx only'][0],
+                 'cluster': plan.cluster, 'blocks': plan.blocks,
+                 'bound_products_ms': prod_ms, 'bound_routing_ms': route_ms,
+                 'float32_bound_ms': f32_ms}
 
     # 8. the training path
     tcfg = cfg_from_file(TRAIN_CFG)
@@ -1085,8 +1196,12 @@ def main() -> int:
     for name, fn in kernels.items():
         extra = {}
         if name in cc.KERNELS:
-            ms, plain_ms, (flops, nbytes), shape = timing[name]
-            bound_ms, bound_by = _bound(flops, nbytes)
+            ms, plain_ms, work, shape = timing[name]
+            if name == 'K2-D':
+                bound_ms, bound_by = _k2d_bound(shape)[:2]
+                extra = k2d_extra
+            else:
+                bound_ms, bound_by = _bound(*work)
             library_ms, shape, n = None, list(shape), train_launches[name]
         elif name in cv.KERNELS:  # the record shape's fastest NB
             v = v_record[name]

@@ -23,7 +23,11 @@ K2 is held to autograd through the plain routing at |d| <= 1e-3 |ref| +
 over every sample and input capsule) and the softmax pullback subtracts
 nearly equal row sums, so float32 orders differ by more than the forward.
 The JAX package's own bar for its fused backward is 2e-2 mean relative
-error (tests/test_capsule_pallas_bwd.py).
+error (tests/test_capsule_pallas_bwd.py). K2-D (the votes form: 3xTF32
+tensor-core products, the routing on a cluster of blocks per sample) is
+also held to that bar through its plan at every cluster size and every
+need_dx / need_dw combination, and two calls must agree bit for bit (no
+atomics; cluster reductions and split-K sums in a fixed order).
 
 K3 (fused BN+GLU) is held to ``bn_glu_reference``: float32 at rtol/atol
 1e-6 (the same float32 arithmetic, elementwise; only the exponential's and
@@ -156,6 +160,102 @@ def test_k2_matches_plain_autograd(card, shape, iters):
     dx_only, dw_none = kernel(x, w, dv, iters, True, False)
     assert dw_none is None
     assert_k2_close(dx_only, ref_dx)
+
+
+# K2-D (votes form) through its plan: the flagship, the ragged votes shape,
+# J smaller than every cluster but 1 and 2, I != 16 with an odd in_length
+# (the products' 4-byte copies) and out_length 32
+K2D_SHAPES = [(32, 16, 512, 201, 16), (3, 5, 24, 37, 16), (4, 16, 64, 3, 16),
+              (6, 10, 37, 50, 32)]
+
+
+def _k2d_inputs(shape, device, seed=2):
+    bsz, in_caps, in_len, out_caps, out_len = shape
+    x, w = _inputs((bsz, in_caps, in_len), (out_caps, out_len, in_len),
+                   device, seed=seed)
+    dv = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (bsz, out_caps, out_len), dtype=np.float32)).to(device)
+    return x, w, dv
+
+
+def _k2d_plan(shape, cluster=None):
+    return cc.votes_bwd_plan(*shape, 3, sms=torch.cuda.get_device_properties(
+        0).multi_processor_count, cluster=cluster)
+
+
+@pytest.mark.parametrize('shape', K2D_SHAPES)
+@pytest.mark.parametrize('cluster', [1, 2, 4, 8])
+def test_k2d_every_cluster_size_and_need_matches_plain_autograd(card, shape,
+                                                                cluster):
+    """K2-D forced through the plan at each cluster size, for each
+    need_dx / need_dw combination, against autograd through the plain
+    routing at K2's bar."""
+    x, w, dv = _k2d_inputs(shape, card)
+    plan = _k2d_plan(shape, cluster)
+    assert plan.cluster == min(cluster, shape[3])
+    ref_dx, ref_dw = _plain_grads(x, w, dv, 3)
+    for need_dx, need_dw in ((True, True), (True, False), (False, True),
+                             (False, False)):
+        before = cc.routing_bwd_votes.launches
+        dx, dw = cc.routing_bwd_votes(x, w, dv, 3, need_dx, need_dw,
+                                      plan=plan)
+        torch.cuda.synchronize()
+        assert cc.routing_bwd_votes.launches == before + (need_dx or need_dw)
+        assert (dx is None) != need_dx and (dw is None) != need_dw
+        if need_dx:
+            assert_k2_close(dx, ref_dx)
+        if need_dw:
+            assert_k2_close(dw, ref_dw)
+
+
+def test_k2d_default_plan_at_the_flagship(card):
+    """The wrapper's own plan at the flagship: clusters of 4 on an H100's
+    132 SMs (128 blocks), the plan's shared memory as the library counts
+    it, and the result within K2's bar."""
+    shape = K2D_SHAPES[0]
+    plan = _k2d_plan(shape)
+    if torch.cuda.get_device_properties(0).multi_processor_count == 132:
+        assert (plan.cluster, plan.blocks) == (4, 128)
+    x, w, dv = _k2d_inputs(shape, card, seed=5)
+    dx, dw = cc.routing_bwd_votes(x, w, dv, 3)
+    ref_dx, ref_dw = _plain_grads(x, w, dv, 3)
+    assert_k2_close(dx, ref_dx)
+    assert_k2_close(dw, ref_dw)
+    smem = cc._kernels()['bwd_votes_smem']
+    for s in K2D_SHAPES:
+        for c in (1, 2, 4, 8):
+            p = _k2d_plan(s, c)
+            assert smem(s[1], s[3], s[4], 3, p.cluster,
+                        int(p.votes_in_smem)) == p.smem_bytes
+
+
+def test_k2d_is_deterministic(card):
+    """No atomics; the cluster reductions combine in rank order and dx's
+    split-K partials sum in split order: two calls give the same bits."""
+    x, w, dv = _k2d_inputs(K2D_SHAPES[0], card, seed=7)
+    first = cc.routing_bwd_votes(x, w, dv, 3)
+    second = cc.routing_bwd_votes(x, w, dv, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+def test_k2d_refused_launch_raises(card):
+    """A launch that the library or the card refuses raises and counts no
+    launch; nothing falls back: a cluster of 16 (beyond the portable 8),
+    and the votes kept in shared memory at a cluster of 1, 425 KB a
+    block."""
+    shape = K2D_SHAPES[0]
+    x, w, dv = _k2d_inputs(shape, card)
+    before = cc.routing_bwd_votes.launches
+    plan = _k2d_plan(shape)
+    with pytest.raises(RuntimeError, match='failed to launch'):
+        cc.routing_bwd_votes(x, w, dv, 3, plan=plan._replace(cluster=16))
+    one = _k2d_plan(shape, 1)
+    with pytest.raises(RuntimeError, match='failed to launch'):
+        cc.routing_bwd_votes(x, w, dv, 3, plan=one._replace(
+            votes_in_smem=True))
+    assert cc.routing_bwd_votes.launches == before
 
 
 def test_kernels_raise_on_what_they_do_not_take(card):

@@ -32,20 +32,39 @@
 //     the per-(i, j) exponentials and 8-wide dots, about 30 per pair per
 //     pass, and the L2 traffic of the db scratch.
 // (2) Materialised votes, in_length > 8 (the discriminator class head:
-//     16 x 512 -> 201 x 16, 206 KB of votes per sample). The vote product
-//     is recomputed by the tiled float32 product of gemm_f32.cuh into a
-//     scratch; one block per sample reverses the routing with the stash
-//     (c and s of every pass) and the working rows in shared memory
-//     (141 KB at that head) and writes du; then two more products give
-//     dx = du . W and dW = du^T . x, whose contraction over the batch
-//     is the sum. What bounds it: the three float32 products (5 GFLOP at
-//     a batch of 32).
+//     16 x 512 -> 201 x 16, 206 KB of votes per sample). Four launches:
+//     - the vote product u = x . W^T, recomputed into a scratch;
+//     - the routing reversal, on a cluster of C blocks per sample (C from
+//       ops/capsule_cuda.py::votes_bwd_plan: 4 at the flagship, 128 blocks
+//       on 132 SMs). Each block owns a slice of about J / C output
+//       capsules and holds its vote slice (52 KB at C = 4), the stashes of
+//       c, db, s, ds and v of every pass and its working rows in shared
+//       memory. All per-sample work is local to a slice but two
+//       reductions over j: the softmax's (max, sum of exp) per input
+//       capsule in each forward pass and rho_i = sum_j c_ij dc_ij in each
+//       reverse pass. Those 16-float rows go through distributed shared
+//       memory behind cluster barriers and are combined in rank order, so
+//       every block gets the same bits. du is formed once at the end from
+//       the stashes and written once;
+//     - dx = du . W and dW = du^T . x, whose contraction over the batch is
+//       the sum.
+//     The three products run on the tensor cores, float32-faithful
+//     (3xTF32: wgmma on hi and lo tf32 parts, gemm_tf32x3.cuh); dx, with 20
+//     output tiles of 128 x 104, splits its K = J O over blockIdx.z and sums
+//     the partials in a fixed order. No atomics: two calls give the same
+//     bits. The bound is the products' tensor-core work (5.06 GFLOP at a
+//     batch of 32, done three times: 0.031 ms at the TF32 peak); the
+//     routing's arithmetic is small (0.055 GFLOP, 0.0008 ms on the SIMT
+//     cores) but its time is latency: about ten block or cluster barriers
+//     per pass, each over a few thousand elements.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 
-#include "gemm_f32.cuh"
+#include <cooperative_groups.h>
+
+#include "gemm_tf32x3.cuh"
 
 namespace {
 
@@ -435,167 +454,276 @@ cudaError_t launch_factored(const float* x, const float* w, const float* dout,
 
 // ---- (2) materialised votes -----------------------------------------------
 
-// Shared memory: stash c [R][I*J] | stash s [R][J*O] | logits, then dc
-// [I*J] | db [I*J] | ds [J*O] | dv [J*O] | v_prev [J*O].
-__host__ __device__ inline size_t votes_smem_bytes(int I, int J, int O, int R) {
-  return sizeof(float) * ((size_t)R * I * J + (size_t)R * J * O +
-                          2 * (size_t)I * J + 3 * (size_t)J * O);
+// A cluster of C blocks reverses the routing of one sample; block `rank`
+// owns the output capsules [rank J / C, (rank + 1) J / C), at most
+// ceil(J / C) of them (nj below). Shared memory, in floats: the sample's
+// vote slice u [I][nj][O] (only where it fits, `keep`) | stashes of every
+// pass: c [R][I][nj] | db [R][I][nj] | s [R][nj][O] | ds [R][nj][O] |
+// v [R][nj][O] | logits, then dc [I][nj] | dv [nj][O] | exchange rows
+// [2][2 I].
+__host__ __device__ inline size_t cluster_smem_floats(int I, int J, int O,
+                                                      int R, int C,
+                                                      bool keep) {
+  const size_t nj = (size_t)(J + C - 1) / C;
+  return (keep ? (size_t)I * nj * O : 0) + 2 * (size_t)R * I * nj +
+         3 * (size_t)R * nj * O + (size_t)I * nj + nj * O + 4 * (size_t)I;
+}
+
+constexpr int kRouteThreads = 512;
+constexpr int kRouteWarps = kRouteThreads / 32;
+constexpr int kMaxCluster = 8;  // the portable cluster size
+
+// The exchange rows of cluster rank q for row i of this warp: lane q < C
+// reads rank q's value at xw[off + i]; every lane gets rank q's with a
+// shuffle, so that the warp combines them in rank order.
+template <typename Cluster>
+__device__ __forceinline__ float remote_row(Cluster& cluster, float* xw,
+                                            int off, int i, int lane, int C) {
+  return lane < C ? cluster.map_shared_rank(xw, lane)[off + i] : 0.f;
 }
 
 template <int O>
-__global__ void __launch_bounds__(kThreads)
-routing_bwd_votes_kernel(const float* __restrict__ u,
-                         const float* __restrict__ dout,
-                         float* __restrict__ du, int I, int J, int R) {
-  extern __shared__ float4 smem4[];
-  const int IJ = I * J;
-  const int JO = J * O;
+__global__ void __launch_bounds__(kRouteThreads)
+routing_bwd_cluster_kernel(const float* __restrict__ u,
+                           const float* __restrict__ dout,
+                           float* __restrict__ du, int I, int J, int R,
+                           int keep) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / C;
+  const int j0 = rank * J / C;
+  const int nj = (rank + 1) * J / C - j0;
+  const int njm = (J + C - 1) / C;
+  const int JO = nj * O;
   const int JO32 = (JO + 31) & ~31;
-  float* cst = reinterpret_cast<float*>(smem4);
-  float* sst = cst + (size_t)R * IJ;
-  float* bl = sst + (size_t)R * JO;  // logits in the forward, dc after
-  float* dbs = bl + IJ;
-  float* dss = dbs + IJ;
-  float* dvs = dss + JO;
-  float* vps = dvs + JO;
-
-  const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const float* ub = u + (size_t)b * IJ * O;
-  float* dub = du + (size_t)b * IJ * O;
 
-  for (int p = tid; p < IJ; p += kThreads) bl[p] = 0.f;
-  __syncthreads();
-  // ---- forward recompute, stashing c and s of every pass
+  extern __shared__ float4 smem4[];
+  float* us = reinterpret_cast<float*>(smem4);
+  float* cst = us + (keep ? (size_t)I * njm * O : 0);
+  float* dbst = cst + (size_t)R * I * njm;
+  float* sst = dbst + (size_t)R * I * njm;
+  float* dsst = sst + (size_t)R * njm * O;
+  float* vst = dsst + (size_t)R * njm * O;
+  float* bl = vst + (size_t)R * njm * O;
+  float* dvs = bl + (size_t)I * njm;
+  float* xch = dvs + (size_t)njm * O;
+
+  // u[b, i, j0 + jl, o] at ub[i * ldu + jl * O + o]
+  const float* ug = u + (size_t)b * I * J * O + (size_t)j0 * O;
+  const float* ub = ug;
+  size_t ldu = (size_t)J * O;
+  if (keep) {  // all of the slice's 16-byte copies in flight at once
+    const int row4 = JO / 4;
+    for (int q = tid; q < I * row4; q += kRouteThreads)
+      gemm_tf32x3::cp_async<16>(
+          us + 4 * q, ug + (size_t)(q / row4) * J * O + 4 * (q % row4), 16);
+    gemm_tf32x3::cp_async_commit();
+  }
+  // the first pass's logits are 0: each row's slice has max 0, sum nj
+  for (int p = tid; p < I * nj; p += kRouteThreads) bl[p] = 0.f;
+  for (int i = tid; i < I; i += kRouteThreads) {
+    xch[i] = 0.f;
+    xch[I + i] = (float)nj;
+  }
+  if (keep) {
+    gemm_tf32x3::cp_async_wait<0>();
+    ub = us;
+    ldu = JO;
+  }
+
+  // Rows i of [I][nj] go to warps, columns to lanes: each warp owns its
+  // rows through the softmax and its pullback, and combines their
+  // cluster-wide statistics itself. Rows of [nj][O] (s, v, ds, dv) go to
+  // threads.
+  int xp = 0;  // exchanges so far: rows alternate between two buffers
+  // ---- forward recompute, stashing c, s and v of every pass
   for (int r = 0; r < R; ++r) {
-    float* cs = cst + (size_t)r * IJ;
-    for (int i = warp; i < I; i += kWarps) {
-      const float* row = bl + (size_t)i * J;
+    float* cs = cst + (size_t)r * I * njm;
+    float* xw = xch + (xp++ & 1) * 2 * I;
+    cluster.sync();  // every slice's (max, sum of exp) is in place
+    for (int i = warp; i < I; i += kRouteWarps) {
+      const float mq = remote_row(cluster, xw, 0, i, lane, C);
+      const float zq = remote_row(cluster, xw, I, i, lane, C);
       float m = -INFINITY;
-      for (int j = lane; j < J; j += 32) m = fmaxf(m, row[j]);
-      m = warp_max(m);
+      for (int q = 0; q < C; ++q) m = fmaxf(m, __shfl_sync(~0u, mq, q));
       float z = 0.f;
-      for (int j = lane; j < J; j += 32) z += expf(row[j] - m);
-      const float zi = 1.f / warp_sum(z);
-      for (int j = lane; j < J; j += 32)
-        cs[(size_t)i * J + j] = expf(row[j] - m) * zi;
+      for (int q = 0; q < C; ++q)
+        z = fmaf(__shfl_sync(~0u, zq, q), expf(__shfl_sync(~0u, mq, q) - m),
+                 z);
+      const float zi = 1.f / z;
+      for (int j = lane; j < nj; j += 32)
+        cs[i * nj + j] = expf(bl[i * nj + j] - m) * zi;
     }
     __syncthreads();
-    float* ss = sst + (size_t)r * JO;
-    for (int t = tid; t < JO32; t += kThreads) {
+    float* ss = sst + (size_t)r * njm * O;
+    float* vs = vst + (size_t)r * njm * O;
+    for (int t = tid; t < JO32; t += kRouteThreads) {
       const bool valid = t < JO;
-      const int j = t / O;
+      const int jl = t / O;
       float s = 0.f;
       if (valid)
         for (int i = 0; i < I; ++i)
-          s = fmaf(cs[(size_t)i * J + j], ub[(size_t)i * JO + t], s);
+          s = fmaf(cs[i * nj + jl], ub[i * ldu + t], s);
       float n2 = s * s;
 #pragma unroll
       for (int off = O / 2; off > 0; off >>= 1)
         n2 += __shfl_xor_sync(0xffffffffu, n2, off);
       if (valid) {
         ss[t] = s;
-        vps[t] = s * (n2 / (1.f + n2) * rsqrtf(n2 + 1e-8f));
+        vs[t] = s * squash_scale(n2);
       }
     }
     __syncthreads();
-    if (r < R - 1) {
-      for (int p = tid; p < IJ; p += kThreads) {
-        const int j = p % J;
+    if (r == R - 1) break;
+    // agreement update, then this slice's statistics of the new logits
+    float* xn = xch + (xp & 1) * 2 * I;
+    for (int i = warp; i < I; i += kRouteWarps) {
+      float m = -INFINITY;
+      for (int j = lane; j < nj; j += 32) {
+        const float* up = ub + i * ldu + (size_t)j * O;
         float acc = 0.f;
 #pragma unroll
-        for (int o = 0; o < O; ++o)
-          acc = fmaf(ub[(size_t)p * O + o], vps[(size_t)j * O + o], acc);
-        bl[p] += acc;
+        for (int q = 0; q < O; ++q) {
+          const int o = (q + j) & (O - 1);  // rotated: no bank conflicts
+          acc = fmaf(up[o], vs[j * O + o], acc);
+        }
+        bl[i * nj + j] += acc;
+        m = fmaxf(m, bl[i * nj + j]);
+      }
+      m = warp_max(m);
+      float z = 0.f;
+      for (int j = lane; j < nj; j += 32) z += expf(bl[i * nj + j] - m);
+      z = warp_sum(z);
+      if (lane == 0) {
+        xn[i] = m;
+        xn[I + i] = z;
+      }
+    }
+  }
+
+  for (int t = tid; t < JO; t += kRouteThreads)
+    dvs[t] = dout[((size_t)b * J + j0) * O + t];
+  __syncthreads();
+  // ---- reverse
+  for (int r = R - 1; r >= 0; --r) {
+    const float* cs = cst + (size_t)r * I * njm;
+    const float* ss = sst + (size_t)r * njm * O;
+    float* dss = dsst + (size_t)r * njm * O;
+    float* dbs = dbst + (size_t)r * I * njm;
+    // ds through the squash
+    for (int t = tid; t < JO32; t += kRouteThreads) {
+      const bool valid = t < JO;
+      const float s = valid ? ss[t] : 0.f;
+      const float dv = valid ? dvs[t] : 0.f;
+      float n2 = s * s, dots = dv * s;
+#pragma unroll
+      for (int off = O / 2; off > 0; off >>= 1) {
+        n2 += __shfl_xor_sync(0xffffffffu, n2, off);
+        dots += __shfl_xor_sync(0xffffffffu, dots, off);
+      }
+      float g, gp;
+      squash_grad(n2, g, gp);
+      if (valid) dss[t] = dv * g + s * (2.f * dots * gp);
+    }
+    __syncthreads();
+    // dc_ij = sum_o ds_jo u_ijo, and this slice's part of
+    // rho_i = sum_j c_ij dc_ij
+    float* xw = xch + (xp++ & 1) * 2 * I;
+    for (int i = warp; i < I; i += kRouteWarps) {
+      float part = 0.f;
+      for (int j = lane; j < nj; j += 32) {
+        const float* up = ub + i * ldu + (size_t)j * O;
+        float acc = 0.f;
+#pragma unroll
+        for (int q = 0; q < O; ++q) {
+          const int o = (q + j) & (O - 1);
+          acc = fmaf(up[o], dss[j * O + o], acc);
+        }
+        bl[i * nj + j] = acc;
+        part = fmaf(cs[i * nj + j], acc, part);
+      }
+      part = warp_sum(part);
+      if (lane == 0) xw[i] = part;
+    }
+    cluster.sync();
+    // softmax backward: db = c (dc - rho) + db of the next pass, rho summed
+    // over the cluster in rank order
+    for (int i = warp; i < I; i += kRouteWarps) {
+      const float pq = remote_row(cluster, xw, 0, i, lane, C);
+      float rho = 0.f;
+      for (int q = 0; q < C; ++q) rho += __shfl_sync(~0u, pq, q);
+      for (int j = lane; j < nj; j += 32) {
+        const int p = i * nj + j;
+        const float next =
+            r < R - 1 ? dbst[(size_t)(r + 1) * I * njm + p] : 0.f;
+        dbs[p] = cs[p] * (bl[p] - rho) + next;
+      }
+    }
+    __syncthreads();
+    // dv of the previous pass: sum_i db_ij u_ij
+    if (r > 0) {
+      for (int t = tid; t < JO; t += kRouteThreads) {
+        const int jl = t / O;
+        float acc = 0.f;
+        for (int i = 0; i < I; ++i)
+          acc = fmaf(dbs[i * nj + jl], ub[i * ldu + t], acc);
+        dvs[t] = acc;
       }
       __syncthreads();
     }
   }
 
-  for (int t = tid; t < JO; t += kThreads) dvs[t] = dout[(size_t)b * JO + t];
-  __syncthreads();
-  // ---- reverse
-  for (int r = R - 1; r >= 0; --r) {
-    const float* cs = cst + (size_t)r * IJ;
-    const float* ss = sst + (size_t)r * JO;
-    // ds, and v of the previous pass
-    for (int t = tid; t < JO32; t += kThreads) {
-      const bool valid = t < JO;
-      const float s = valid ? ss[t] : 0.f;
-      const float dv = valid ? dvs[t] : 0.f;
-      const float sp = (valid && r > 0) ? sst[(size_t)(r - 1) * JO + t] : 0.f;
-      float n2 = s * s, dots = dv * s, n2p = sp * sp;
-#pragma unroll
-      for (int off = O / 2; off > 0; off >>= 1) {
-        n2 += __shfl_xor_sync(0xffffffffu, n2, off);
-        dots += __shfl_xor_sync(0xffffffffu, dots, off);
-        n2p += __shfl_xor_sync(0xffffffffu, n2p, off);
+  // du = sum_r c_r ds_r + sum_{r > 0} db_r v_{r-1}, from the stashes: a
+  // thread takes one (j, o) and walks the input capsules, so that the
+  // writes of a warp are contiguous
+  for (int t = tid; t < JO; t += kRouteThreads) {
+    const int jl = t / O;
+    for (int i = 0; i < I; ++i) {
+      const int p = i * nj + jl;
+      float val = 0.f;
+      for (int r = 0; r < R; ++r) {
+        val = fmaf(cst[(size_t)r * I * njm + p],
+                   dsst[(size_t)r * njm * O + t], val);
+        if (r > 0)
+          val = fmaf(dbst[(size_t)r * I * njm + p],
+                     vst[(size_t)(r - 1) * njm * O + t], val);
       }
-      float g, gp;
-      squash_grad(n2, g, gp);
-      if (valid) {
-        dss[t] = dv * g + s * (2.f * dots * gp);
-        if (r > 0) vps[t] = sp * (n2p / (1.f + n2p) * rsqrtf(n2p + 1e-8f));
-      }
+      du[((size_t)b * I + i) * J * O + (size_t)j0 * O + t] = val;
     }
-    __syncthreads();
-    // dc_ij = sum_o ds_jo u_ijo
-    for (int p = tid; p < IJ; p += kThreads) {
-      const int j = p % J;
-      float acc = 0.f;
-#pragma unroll
-      for (int o = 0; o < O; ++o)
-        acc = fmaf(ub[(size_t)p * O + o], dss[(size_t)j * O + o], acc);
-      bl[p] = acc;
-    }
-    __syncthreads();
-    // softmax backward, one warp per row: db = c (dc - sum_j c dc) + db_next
-    for (int i = warp; i < I; i += kWarps) {
-      float acc = 0.f;
-      for (int j = lane; j < J; j += 32)
-        acc = fmaf(cs[(size_t)i * J + j], bl[(size_t)i * J + j], acc);
-      const float rho = warp_sum(acc);
-      for (int j = lane; j < J; j += 32) {
-        const size_t p = (size_t)i * J + j;
-        dbs[p] = cs[p] * (bl[p] - rho) + (r < R - 1 ? dbs[p] : 0.f);
-      }
-    }
-    __syncthreads();
-    // du += c ds + db v_prev; dv_prev = sum_i db u
-    for (int e = tid; e < IJ * O; e += kThreads) {
-      const int p = e / O;
-      const int t = (p % J) * O + e % O;
-      float val = cs[p] * dss[t];
-      if (r > 0) val = fmaf(dbs[p], vps[t], val);
-      dub[e] = (r == R - 1) ? val : dub[e] + val;
-    }
-    if (r > 0) {
-      for (int t = tid; t < JO; t += kThreads) {
-        const int j = t / O;
-        float acc = 0.f;
-        for (int i = 0; i < I; ++i)
-          acc = fmaf(dbs[(size_t)i * J + j], ub[(size_t)i * JO + t], acc);
-        dvs[t] = acc;
-      }
-    }
-    __syncthreads();
   }
+  // no block leaves while another may still read its exchange rows
+  cluster.sync();
 }
 
 template <int O>
-cudaError_t launch_votes(const float* u, const float* dout, float* du, int B,
-                         int I, int J, int R, cudaStream_t stream) {
-  const size_t smem = votes_smem_bytes(I, J, O, R);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        routing_bwd_votes_kernel<O>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  routing_bwd_votes_kernel<O><<<B, kThreads, smem, stream>>>(u, dout, du, I,
-                                                             J, R);
+cudaError_t launch_cluster(const float* u, const float* dout, float* du,
+                           int B, int I, int J, int R, int C, int keep,
+                           cudaStream_t stream) {
+  const size_t smem = sizeof(float) * cluster_smem_floats(I, J, O, R, C, keep);
+  cudaError_t e = cudaFuncSetAttribute(
+      routing_bwd_cluster_kernel<O>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * C);
+  cfg.blockDim = dim3(kRouteThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, routing_bwd_cluster_kernel<O>, u, dout, du, I,
+                         J, R, keep);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
@@ -647,18 +775,31 @@ int capsule_routing_bwd(const void* x, const void* w, const void* dout,
   return (int)e;
 }
 
-size_t capsule_routing_votes_bwd_smem_bytes(int I, int J, int O, int R) {
-  return votes_smem_bytes(I, J, O, R);
+size_t capsule_routing_votes_bwd_smem_bytes(int I, int J, int O, int R,
+                                            int cluster, int keep_votes) {
+  return sizeof(float) *
+         cluster_smem_floats(I, J, O, R, cluster, keep_votes != 0);
 }
 
 // Materialised-votes backward, any in_length L. x [B, I, L], w [J, O, L],
 // dout [B, J, O]; votes and dvotes are scratch [B, I, J, O]; dx [B, I, L]
-// or null; dw [J, O, L] or null. Returns the CUDA error code.
+// or null; dw [J, O, L] or null; partial [dx_splits, B * I, L] is dx's
+// split-K scratch where dx_splits > 1: runs of dx_chunk (a multiple of 32)
+// of its K = J O. The routing runs on clusters of
+// `cluster` blocks (1..8, at most J) per sample, with each block's vote
+// slice in shared memory where keep_votes is set
+// (ops/capsule_cuda.py::votes_bwd_plan chooses all of these). Returns the
+// CUDA error code; a cluster launch that the card refuses returns its
+// error, and nothing falls back to another form.
 int capsule_routing_votes_bwd(const void* x, const void* w, const void* dout,
                               void* dx, void* dw, void* votes, void* dvotes,
-                              int B, int I, int L, int J, int O, int iters,
-                              int device, void* stream) {
-  if (B <= 0 || I <= 0 || L <= 0 || J <= 0 || iters <= 0)
+                              void* partial, int B, int I, int L, int J,
+                              int O, int iters, int cluster, int keep_votes,
+                              int dx_splits, int dx_chunk, int device,
+                              void* stream) {
+  if (B <= 0 || I <= 0 || L <= 0 || J <= 0 || iters <= 0 || cluster < 1 ||
+      cluster > kMaxCluster || cluster > J || dx_splits < 1 ||
+      (dx && dx_splits > 1 && !partial))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -667,33 +808,37 @@ int capsule_routing_votes_bwd(const void* x, const void* w, const void* dout,
   const float* wf = static_cast<const float*>(w);
   float* u = static_cast<float*>(votes);
   float* du = static_cast<float*>(dvotes);
-  const long long JO = (long long)J * O;
-  // u [B*I, J*O] = x [B*I, L] . w[J*O, L]^T
-  e = capsule_gemm::gemm_f32(xf, wf, u, B * I, (int)JO, L, L, 1, 1, L, JO, st);
+  const int JO = J * O, BI = B * I;
+  const int kb = gemm_tf32x3::kBK;
+  // u [B*I, J*O] = x [B*I, L] . w [J*O, L]^T (both K-major)
+  e = gemm_tf32x3::gemm(xf, true, L, wf, true, L, u, JO, BI, JO, L, 1,
+                        (L + kb - 1) / kb * kb, nullptr, st);
   if (e != cudaSuccess) return (int)e;
   switch (O) {
     case 16:
-      e = launch_votes<16>(u, static_cast<const float*>(dout), du, B, I, J,
-                           iters, st);
+      e = launch_cluster<16>(u, static_cast<const float*>(dout), du, B, I, J,
+                             iters, cluster, keep_votes != 0, st);
       break;
     case 32:
-      e = launch_votes<32>(u, static_cast<const float*>(dout), du, B, I, J,
-                           iters, st);
+      e = launch_cluster<32>(u, static_cast<const float*>(dout), du, B, I, J,
+                             iters, cluster, keep_votes != 0, st);
       break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (e != cudaSuccess) return (int)e;
   if (dx) {
-    // dx [B*I, L] = du [B*I, J*O] . w [J*O, L]
-    e = capsule_gemm::gemm_f32(du, wf, static_cast<float*>(dx), B * I, L,
-                               (int)JO, JO, 1, L, 1, L, st);
+    // dx [B*I, L] = du [B*I, J*O] . w [J*O, L] (w read N-major), K split
+    e = gemm_tf32x3::gemm(du, true, JO, wf, false, L, static_cast<float*>(dx),
+                          L, BI, L, JO, dx_splits, dx_chunk,
+                          static_cast<float*>(partial), st);
     if (e != cudaSuccess) return (int)e;
   }
   if (dw) {
-    // dw [J*O, L] = du^T [J*O, B*I] . x [B*I, L]: the batch sum is the
-    // contraction
-    e = capsule_gemm::gemm_f32(du, xf, static_cast<float*>(dw), (int)JO, L,
-                               B * I, 1, JO, L, 1, L, st);
+    // dw [J*O, L] = du^T [J*O, B*I] . x [B*I, L] (du read M-major, x
+    // N-major): the batch sum is the contraction
+    e = gemm_tf32x3::gemm(du, false, JO, xf, false, L,
+                          static_cast<float*>(dw), L, JO, L, BI, 1,
+                          (BI + kb - 1) / kb * kb, nullptr, st);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)e;

@@ -1,8 +1,8 @@
 // A plain tiled float32 matrix product for the capsule kernels whose vote
 // tensor is small enough to exist (the discriminator class head: 16 input
-// capsules of length 8*ndf). Included by capsule_routing.cu (the vote
-// product of K1 at in_length > 8) and capsule_routing_bwd.cu (the vote
-// product again, and the two pullbacks of K2 through it).
+// capsules of length 8*ndf). Included by capsule_routing.cu only: the vote
+// product of K1 at in_length > 8 (K1-D). K2-D's three products run on the
+// tensor cores instead (gemm_tf32x3.cuh).
 //
 //   C[m, n] = sum_k A(m, k) B(k, n)
 //   A(m, k) = A[m * sam + k * sak],  B(k, n) = B[k * sbk + n * sbn]

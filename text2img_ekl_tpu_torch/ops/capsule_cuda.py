@@ -11,8 +11,12 @@ kernel on Hopper and what the design does about it:
   (``csrc/capsule_routing_bwd.cu``, ``capsule_routing_bwd``), in which the
   6.3 MB-per-sample vote tensor never exists;
 - any other in_length (the discriminator class head, 512): the vote tensor
-  is materialised by a tiled float32 product, then routed
-  (``capsule_routing_votes_fwd``) or reversed (``capsule_routing_votes_bwd``).
+  is materialised, then routed (``capsule_routing_votes_fwd``, a tiled
+  float32 product and one block per sample) or reversed
+  (``capsule_routing_votes_bwd``, K2-D: float32-faithful 3xTF32 products on
+  the tensor cores and a cluster of blocks per sample, as
+  ``votes_bwd_plan`` chooses). ``votes_bwd_reference`` is K2-D's algorithm
+  in plain PyTorch, and ``tf32x3_matmul_reference`` emulates its products.
 
 Both forms are kernels; the in_length picks the form. ``capsule_routing``
 runs the plain routing (``capsule.capsule_linear``) for tensors on the
@@ -26,7 +30,7 @@ the backward recomputes the routing.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -38,9 +42,15 @@ OUT_LENGTHS = (16, 32)    # instantiated templates (csrc/*.cu)
 MAX_IN_CAPSULES = 512     # factored form: one thread per input capsule in
                           # the reductions
 MAX_SMEM_BYTES = 232448   # dynamic shared memory one block may use on sm_90
+# K2-D (csrc/capsule_routing_bwd.cu, csrc/gemm_tf32x3.cuh): the cluster
+# sizes its plan picks from (8 is the portable maximum), and the products'
+# block tile (rows, columns, K depth)
+CLUSTER_SIZES = (1, 2, 4, 8)
+GEMM_BM, GEMM_BN, GEMM_BK = 128, 104, 32
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _fns = None
+_sms = {}
 
 
 def _kernels():
@@ -69,9 +79,9 @@ def _kernels():
             bwd_scratch=fn(bwd_lib, 'capsule_routing_bwd_scratch_floats',
                            [_I] * 4, size),
             bwd_votes=fn(bwd_lib, 'capsule_routing_votes_bwd',
-                         [_P] * 7 + [_I] * 7 + [_P]),
+                         [_P] * 8 + [_I] * 11 + [_P]),
             bwd_votes_smem=fn(bwd_lib, 'capsule_routing_votes_bwd_smem_bytes',
-                              [_I] * 4, size))
+                              [_I] * 6, size))
     return _fns
 
 
@@ -81,6 +91,13 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _sm_count(device: torch.device) -> int:
+    if device.index not in _sms:
+        _sms[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sms[device.index]
 
 
 def _check_launch(err: int, name: str) -> None:
@@ -220,11 +237,83 @@ def routing_bwd_factored(x: torch.Tensor, weight: torch.Tensor,
     return dx, dw
 
 
+class VotesBwdPlan(NamedTuple):
+    """How K2-D runs one call: the routing on ``cluster`` blocks per sample
+    (``blocks`` in all), rank r owning the output capsules
+    ``slices[r]`` = [j0, j1), with ``smem_bytes`` of shared memory per
+    block, which holds the block's vote slice where ``votes_in_smem``; the
+    scratch u and du of ``votes_numel`` floats each; dx's product split
+    over K = J O into ``dx_splits`` runs of ``dx_chunk``, with a
+    ``partial_numel``-float scratch where it splits."""
+    cluster: int
+    slices: Tuple[Tuple[int, int], ...]
+    blocks: int
+    smem_bytes: int
+    votes_in_smem: bool
+    votes_numel: int
+    dx_splits: int
+    dx_chunk: int
+    partial_numel: int
+
+
+def votes_bwd_smem_bytes(I: int, J: int, O: int, R: int, cluster: int,
+                         votes_in_smem: bool) -> int:
+    """Shared memory per block of K2-D's routing
+    (``csrc/capsule_routing_bwd.cu::cluster_smem_floats``): the vote slice
+    [I][nj][O] where kept, the stashes c and db [R][I][nj] and s, ds and v
+    [R][nj][O], the logits [I][nj], dv [nj][O] and two exchange rows of
+    2 I floats, nj = ceil(J / cluster)."""
+    nj = -(-J // cluster)
+    return 4 * ((I * nj * O if votes_in_smem else 0) + 2 * R * I * nj +
+                3 * R * nj * O + I * nj + nj * O + 4 * I)
+
+
+def votes_bwd_plan(B: int, I: int, L: int, J: int, O: int, R: int,
+                   sms: int = 132, cluster: Optional[int] = None
+                   ) -> VotesBwdPlan:
+    """K2-D's launch plan for x [B, I, L], weight [J, O, L] and R routing
+    passes on a card of ``sms`` SMs. The cluster is the largest of
+    ``CLUSTER_SIZES`` whose B x cluster blocks run in one wave of one block
+    per SM (4 at the flagship's B = 32: 128 blocks), or ``cluster`` where
+    given; never more than J, so that no slice is empty. Slices split J as
+    evenly as integers allow (rank r from r J / C). The vote slice stays in
+    shared memory where it fits; raises ValueError where even the stashes
+    do not. dx's product (B I x L in tiles of 128 x 104, one block per SM)
+    splits its K into runs of whole 32-deep steps, as many as fill the SMs
+    once."""
+    if cluster is None:
+        fits = [c for c in CLUSTER_SIZES if B * c <= sms]
+        cluster = max(fits) if fits else 1
+    elif cluster not in CLUSTER_SIZES:
+        raise ValueError('votes_bwd_plan: cluster %d not in %s'
+                         % (cluster, CLUSTER_SIZES))
+    cluster = min(cluster, J)
+    slices = tuple((r * J // cluster, (r + 1) * J // cluster)
+                   for r in range(cluster))
+    keep = votes_bwd_smem_bytes(I, J, O, R, cluster, True) <= MAX_SMEM_BYTES
+    smem = votes_bwd_smem_bytes(I, J, O, R, cluster, keep)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError('capsule_routing: the backward of %d x %d votes '
+                         'needs %d bytes of shared memory per block at a '
+                         'cluster of %d, more than %d'
+                         % (I, J, smem, cluster, MAX_SMEM_BYTES))
+    steps = -(-J * O // GEMM_BK)
+    tiles = -(-B * I // GEMM_BM) * -(-L // GEMM_BN)
+    splits = max(1, min(steps, sms // tiles))
+    chunk = -(-steps // splits) * GEMM_BK
+    splits = -(-J * O // chunk)
+    return VotesBwdPlan(cluster, slices, B * cluster, smem, keep,
+                        B * I * J * O, splits, chunk,
+                        splits * B * I * L if splits > 1 else 0)
+
+
 def routing_bwd_votes(x: torch.Tensor, weight: torch.Tensor,
                       dv: torch.Tensor, num_iterations: int,
-                      need_dx: bool = True, need_dw: bool = True):
-    """K2, materialised votes: (dx [B, in, L] or None, dweight [out,
-    out_length, L] summed over the batch, or None), on the card."""
+                      need_dx: bool = True, need_dw: bool = True,
+                      plan: Optional[VotesBwdPlan] = None):
+    """K2-D, materialised votes: (dx [B, in, L] or None, dweight [out,
+    out_length, L] summed over the batch, or None), on the card, run as
+    ``plan`` says (default: ``votes_bwd_plan`` for this card)."""
     bsz, in_caps, in_len, out_caps, out_len = _shapes(x, weight,
                                                       num_iterations)
     dv = dv.contiguous()
@@ -236,18 +325,28 @@ def routing_bwd_votes(x: torch.Tensor, weight: torch.Tensor,
         if dw is not None:
             dw.zero_()
         return dx, dw
+    if plan is None:
+        plan = votes_bwd_plan(bsz, in_caps, in_len, out_caps, out_len,
+                              num_iterations, _sm_count(x.device))
+    if plan.votes_numel != bsz * in_caps * out_caps * out_len or \
+            plan.partial_numel < (plan.dx_splits * bsz * in_caps * in_len
+                                  if plan.dx_splits > 1 else 0):
+        raise ValueError('capsule_routing: %s does not fit x %s, weight %s'
+                         % (plan, tuple(x.shape), tuple(weight.shape)))
     k = _kernels()
-    _check_smem(k['bwd_votes_smem'](in_caps, out_caps, out_len,
-                                    num_iterations),
-                'the backward of %d x %d votes' % (in_caps, out_caps))
-    votes = torch.empty((bsz, in_caps, out_caps, out_len), device=x.device,
+    votes = torch.empty(plan.votes_numel, device=x.device,
                         dtype=torch.float32)
     dvotes = torch.empty_like(votes)
+    partial = None
+    if need_dx and plan.dx_splits > 1:
+        partial = torch.empty(plan.partial_numel, device=x.device,
+                              dtype=torch.float32)
     _check_launch(k['bwd_votes'](
         x.data_ptr(), weight.data_ptr(), dv.data_ptr(), _ptr(dx), _ptr(dw),
-        votes.data_ptr(), dvotes.data_ptr(), bsz, in_caps, in_len, out_caps,
-        out_len, num_iterations, x.device.index, _stream(x)),
-        'capsule_routing_votes_bwd')
+        votes.data_ptr(), dvotes.data_ptr(), _ptr(partial), bsz, in_caps,
+        in_len, out_caps, out_len, num_iterations, plan.cluster,
+        int(plan.votes_in_smem), plan.dx_splits, plan.dx_chunk,
+        x.device.index, _stream(x)), 'capsule_routing_votes_bwd')
     routing_bwd_votes.launches += 1
     return dx, dw
 
@@ -283,6 +382,76 @@ def _plain_backward(x, weight, dv, num_iterations, need_dx, need_dw):
         grads = iter(torch.autograd.grad(out, inputs, dv))
     return (next(grads) if need_dx else None,
             next(grads) if need_dw else None)
+
+
+def round_tf32(a: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest tf32 value (10 stored significand bits),
+    ties away from zero, by bit arithmetic on the float32 pattern, as
+    ``cvt.rna.tf32.f32`` rounds; infinities and NaNs pass unchanged."""
+    bits = a.float().contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(a), rounded, a.float())
+
+
+def tf32x3_matmul_reference(a: torch.Tensor, b: torch.Tensor
+                            ) -> torch.Tensor:
+    """a @ b as K2-D's products compute it (``csrc/gemm_tf32x3.cuh``): each
+    float32 operand split into hi = tf32(v) and lo = tf32(v - hi), and
+    lo.hi + hi.lo + hi.hi accumulated in float32 (lo.lo dropped); up to the
+    order of the float32 sums."""
+    ah = round_tf32(a)
+    bh = round_tf32(b)
+    al = round_tf32(a - ah)
+    bl = round_tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def votes_bwd_reference(x: torch.Tensor, weight: torch.Tensor,
+                        dv: torch.Tensor, num_iterations: int,
+                        need_dx: bool = True, need_dw: bool = True,
+                        matmul=torch.matmul):
+    """K2-D's algorithm in plain PyTorch: the vote product u = x W^T, the
+    routing recomputed with its stashes (c, s, v of every pass), reversed
+    through the squash, the softmax and the agreement update into du, and
+    dx = du W, dW = du^T x. ``matmul`` computes the three products
+    (``tf32x3_matmul_reference`` emulates the kernel's). Returns (dx or
+    None, dW or None)."""
+    bsz, in_caps, in_len = x.shape
+    out_caps, out_len = weight.shape[:2]
+    x2 = x.reshape(bsz * in_caps, in_len)
+    w2 = weight.reshape(out_caps * out_len, in_len)
+    u = matmul(x2, w2.t()).view(bsz, in_caps, out_caps, out_len)
+    logits = torch.zeros((bsz, in_caps, out_caps), dtype=u.dtype,
+                         device=u.device)
+    cs, ss, vs = [], [], []
+    for r in range(num_iterations):
+        c = torch.softmax(logits, dim=2)
+        s = torch.einsum('bij,bijo->bjo', c, u)
+        n2 = (s * s).sum(-1, keepdim=True)
+        v = s * (n2 / (1 + n2) * torch.rsqrt(n2 + 1e-8))
+        cs.append(c)
+        ss.append(s)
+        vs.append(v)
+        if r < num_iterations - 1:
+            logits = logits + torch.einsum('bijo,bjo->bij', u, v)
+    du = torch.zeros_like(u)
+    grad_v, db = dv, 0
+    for r in reversed(range(num_iterations)):
+        s, c = ss[r], cs[r]
+        n2 = (s * s).sum(-1, keepdim=True)
+        inv1, rs = 1 / (1 + n2), torch.rsqrt(n2 + 1e-8)
+        g = n2 * inv1 * rs
+        gp = inv1 * rs - n2 * inv1 * inv1 * rs - 0.5 * n2 * inv1 * rs ** 3
+        ds = grad_v * g + s * (2 * (grad_v * s).sum(-1, keepdim=True) * gp)
+        dc = torch.einsum('bijo,bjo->bij', u, ds)
+        db = c * (dc - (c * dc).sum(2, keepdim=True)) + db
+        du = du + c[..., None] * ds[:, None]
+        if r > 0:
+            du = du + db[..., None] * vs[r - 1][:, None]
+            grad_v = torch.einsum('bij,bijo->bjo', db, u)
+    du2 = du.reshape(bsz * in_caps, out_caps * out_len)
+    return (matmul(du2, w2).view(x.shape) if need_dx else None,
+            matmul(du2.t(), x2).view(weight.shape) if need_dw else None)
 
 
 def _on_cpu(x, weight) -> bool:

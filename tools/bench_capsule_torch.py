@@ -2,8 +2,8 @@
 """Microbenchmark of the port's capsule-routing kernels at the flagship
 shapes.
 
-    python3 tools/bench_capsule_torch.py [--bwd | --variants] [--batch 128]
-        [--shape 48,8,1024,32] [--device cuda]
+    python3 tools/bench_capsule_torch.py [--bwd [--profile] | --variants]
+        [--batch 128] [--shape 48,8,1024,32] [--device cuda]
 
 The port of tools/bench_capsule.py, with no JAX. ``--shape`` is
 in_capsules,in_length,out_capsules,out_length: the generator head by
@@ -25,6 +25,19 @@ events, best of two runs of each function in turns (a, b, b, a):
   ``CapsuleRoutingFunction`` (K1 + K2);
 - ``--variants``: the plain routing and K1, then every variant at every NB
   of ``SWEEP`` in turns with K1.
+
+With ``--bwd --profile`` at a votes-form shape (in_length > 8, the
+discriminator class head: ``--shape 16,512,201,16 --batch 32``) it also
+records 20 calls of K2-D (``routing_bwd_votes``) under torch.profiler, once
+with dx and dW and once with dx only (``need_dw=False``, the generator
+phase of the step), and prints the device time per call of each kernel
+inside it in launch order (product u, routing, product dx, product dW).
+Beside it, the yardstick: the same three products as ``torch.matmul``
+calls on inputs of the same shapes, in float32 with TF32 off and again
+with TF32 on, each timed (CUDA events, in turns with K2-D) and profiled;
+the port never calls them. Last, the plan's choice and a sweep of K2-D
+over every cluster size of ``CLUSTER_SIZES``, forced through
+``votes_bwd_plan``: CUDA events in turns, and the routing's device time.
 
 It needs a CUDA card, and refuses to run without one, unless ``--device
 cpu`` is given: then the same runs on the CPU, where every wrapper takes
@@ -73,7 +86,15 @@ def parse_args(argv=None):
     ap.add_argument('--shape', type=str, default='48,8,1024,32',
                     help='in_caps,in_length,out_caps,out_length')
     ap.add_argument('--device', choices=('cuda', 'cpu'), default='cuda')
-    return ap.parse_args(argv)
+    ap.add_argument('--profile', action='store_true',
+                    help='with --bwd at a votes-form shape: device time of '
+                    'each kernel inside K2-D, and the torch.matmul '
+                    'yardstick')
+    args = ap.parse_args(argv)
+    if args.profile and (args.device != 'cuda' or not args.bwd):
+        ap.error('--profile reads device time of K2-D: it needs --bwd and '
+                 '--device cuda')
+    return args
 
 
 def _inputs(batch, shape, device):
@@ -135,6 +156,121 @@ def _card(device):
         check=True).stdout.strip().splitlines()[0]
 
 
+def kernel_trace(fn, calls=20):
+    """The device kernels of one call of ``fn`` in launch order, [(name,
+    us per call)], from torch.profiler over ``calls`` calls after a
+    warm-up; empty where the profiler recorded no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(WARM):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if str(e.device_type).endswith('CUDA')),
+                 key=lambda e: e.time_range.start)
+    if not evs or len(evs) % calls:
+        return []
+    per = len(evs) // calls
+    return [(evs[k].name, sum(evs[c * per + k].time_range.elapsed_us()
+                              for c in range(calls)) / calls)
+            for k in range(per)]
+
+
+def _label(trace, products):
+    """Name the kernels of a K2-D trace: its tensor-core / SIMT products in
+    launch order take the names in ``products``, the rest their own."""
+    names = iter(products)
+    return [('product %s' % next(names, '?') if 'gemm' in n and 'sum' not in n
+             else 'routing' if 'routing' in n else n.split('(')[0][-40:], us)
+            for n, us in trace]
+
+
+def profile_votes_bwd(x, w, card):
+    """K2-D's device time by kernel, with dx and dW and with dx only, and
+    the torch.matmul yardstick of its three products, in float32 and in
+    TF32, and the cluster sweep; prints and returns {'k2d': {need_dw:
+    trace}, 'matmul': {tf32: (events ms, trace)}, 'k2d_ms': {need_dw:
+    [events ms]}, 'sweep': {cluster: (events ms, routing us)}}."""
+    from text2img_ekl_tpu_torch.ops import capsule_cuda as cc
+    bsz, in_caps, in_len = x.shape
+    out_caps, out_len = w.shape[:2]
+    rng = np.random.default_rng(1)
+    dv = torch.from_numpy(rng.standard_normal(
+        (bsz, out_caps, out_len), dtype=np.float32)).to(x.device)
+    x2, w2 = x.reshape(bsz * in_caps, in_len), w.reshape(-1, in_len)
+    du = torch.from_numpy(rng.standard_normal(
+        (bsz * in_caps, out_caps * out_len), dtype=np.float32)).to(x.device)
+
+    def products():
+        return x2 @ w2.t(), du @ w2, du.t() @ x2
+
+    out = {'k2d': {}, 'matmul': {}, 'k2d_ms': {}}
+    for need_dw in (True, False):
+        def k2d():
+            return cc.routing_bwd_votes(x, w, dv, ITERS, True, need_dw)
+        trace = _label(kernel_trace(k2d),
+                       ('u', 'dx', 'dW') if need_dw else ('u', 'dx'))
+        out['k2d'][need_dw] = trace
+        print('K2-D %s device time per call: %s' % (
+            'dx and dW' if need_dw else 'dx only',
+            '%.1f us (%s)' % (sum(us for _, us in trace), '; '.join(
+                '%s %.1f' % kv for kv in trace)) if trace else
+            'not recorded (the profiler saw no device activity)'))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            best = best_ms({'matmul': products,
+                            'dx_dw': lambda: cc.routing_bwd_votes(
+                                x, w, dv, ITERS, True, True),
+                            'dx': lambda: cc.routing_bwd_votes(
+                                x, w, dv, ITERS, True, False)}, x.device)
+            trace = kernel_trace(products)
+            out['matmul'][tf32] = (best['matmul'][0], trace)
+            out['k2d_ms'].setdefault(True, []).append(best['dx_dw'][0])
+            out['k2d_ms'].setdefault(False, []).append(best['dx'][0])
+            print('torch.matmul x3 (u, dx, dW; %s): %.4f ms (best of 2 x %d, '
+                  'in turns with K2-D: dx and dW %.4f ms, dx only %.4f ms); '
+                  'device %s on %s' % (
+                      'TF32' if tf32 else 'float32, TF32 off',
+                      best['matmul'][0], TIMED, best['dx_dw'][0],
+                      best['dx'][0], '%.1f us (%s)' % (
+                          sum(us for _, us in trace), '; '.join(
+                              '%.1f' % us for _, us in trace))
+                      if trace else 'not recorded', card))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    shape = (bsz, in_caps, in_len, out_caps, out_len)
+    plan = cc.votes_bwd_plan(*shape, ITERS, sms)
+    print('K2-D plan on %d SMs: clusters of %d, %d blocks, %d B of shared '
+          'memory a block, votes in shared memory %s, dx split %d ways'
+          % (sms, plan.cluster, plan.blocks, plan.smem_bytes,
+             plan.votes_in_smem, plan.dx_splits))
+    plans = {}
+    for c in cc.CLUSTER_SIZES:
+        p = cc.votes_bwd_plan(*shape, ITERS, sms, cluster=c)
+        plans.setdefault(p.cluster, p)
+    fns = {c: (lambda p=p: cc.routing_bwd_votes(x, w, dv, ITERS, True, True,
+                                                plan=p))
+           for c, p in plans.items()}
+    best = best_ms(fns, x.device)
+    out['sweep'] = {}
+    for c, p in plans.items():
+        trace = _label(kernel_trace(fns[c]), ('u', 'dx', 'dW'))
+        routing = sum(us for n, us in trace if n == 'routing')
+        out['sweep'][c] = (best[c][0], routing)
+        print('K2-D cluster sweep C=%d (%d blocks, votes in shared memory '
+              '%s): %.4f ms (best of 2 x %d, in turns; all %s), routing %s '
+              'device' % (c, p.blocks, p.votes_in_smem, best[c][0], TIMED,
+                          ['%.4f' % v for v in best[c][1]],
+                          '%.1f us' % routing if trace else 'not recorded'))
+    return out
+
+
 def _grads(fn, x, w):
     xd = x.detach().requires_grad_(True)
     wd = w.detach().requires_grad_(True)
@@ -186,7 +322,13 @@ def run(args):
                        device)
         row('plain forward+backward', None, best['plain'], 0.0)
         row('K1+K2 forward+backward', None, best['kernel'], err)
-        return {'shape': (bsz,) + shape, 'rows': rows}
+        res = {'shape': (bsz,) + shape, 'rows': rows}
+        if args.profile:
+            if shape[1] == 8:
+                raise SystemExit('--profile profiles K2-D, the votes form: '
+                                 'give an in_length other than 8')
+            res['profile'] = profile_votes_bwd(x, w, card)
+        return res
 
     with torch.no_grad():
         best = best_ms({'plain': plain, 'K1': k1}, device)

@@ -34,8 +34,9 @@ GROUPS = (('K3 fused BN+GLU', ('bn_glu_kernel',)),
           ('K1-D capsule routing', ('routing_votes_fwd_kernel',)),
           ('K2-G routing backward', ('routing_bwd_factored_kernel',
                                      'dw_factored_kernel')),
-          ('K2-D routing backward', ('routing_bwd_votes_kernel',)),
-          ('K1-D/K2-D vote products', ('gemm_f32_kernel',)),
+          ('K2-D routing backward', ('routing_bwd_cluster_kernel',)),
+          ('K2-D products (3xTF32)', ('gemm_tf32x3',)),
+          ('K1-D vote product', ('gemm_f32_kernel',)),
           ('optimizer', ('adam', 'multi_tensor')),
           ('convolution', ('conv', 'gemm', 'xmma', 'cutlass', 'sm90_')),
           ('batch norm', ('batch_norm', 'bn_')),
