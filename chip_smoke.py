@@ -10,7 +10,7 @@ found; any failure raises and exits non-zero:
   1. build the CUDA kernels from text2img_ekl_tpu_torch/csrc with nvcc, one
      process per source, all at once; print ptxas's registers and spills
      per kernel and, from cuobjdump -sass, the tensor-core instructions of
-     K2-D's product kernels;
+     the 3xTF32 product kernels of K1-D and K2-D;
   2. hold the factored capsule-routing forward (K1-G) to the plain PyTorch
      routing on the card, float32 with TF32 off, at the flagship generator
      shape and a ragged one;
@@ -25,11 +25,13 @@ found; any failure raises and exits non-zero:
   5. time K1-G against the plain routing at the flagship shape, and the
      caption sampler's images/s at the config's compute dtype;
   6. hold K1-D (the votes form, the discriminator class head) to the plain
-     routing at B=32 and at a ragged shape;
+     routing at B=32 and at a ragged shape; time it beside its bound (the
+     3xTF32 vote product and the routing) and sweep its cluster size;
   7. hold K2-G and K2-D (the backward kernels) to autograd through the
-     plain routing at B=32, and time kernels and plain versions; K2-D both
-     with dx and dW and with dx only, with its plan (cluster size, blocks)
-     and its bound split into the 3xTF32 products and the routing;
+     plain routing at B=32, and time kernels and plain versions; K2-G with
+     its plan and a sweep of its cluster size; K2-D both with dx and dW and
+     with dx only, with its plan (cluster size, blocks) and its bound split
+     into the 3xTF32 products and the routing;
   8. drive the training path: CondGANTrainer.train(max_steps=3) on
      cfg/birds_2stg_splitz_cap_ca.realcls.yml at full width (GF_DIM and
      DF_DIM 64, batch 32, 64 and 128 px, bf16 compute) on synthetic data;
@@ -148,8 +150,8 @@ MOMENT_RTOL, MOMENT_ATOL = 1e-2, 1e-5
 # dense bfloat16 on the tensor cores (the bound of a bf16 kernel: the TPU
 # kernels contract bf16 on the matrix unit) and device-memory bandwidth
 F32_FLOPS, BF16_FLOPS, HBM_BYTES = 67e12, 989e12, 3.35e12
-# dense TF32 on the tensor cores: K2-D's products run there, each float32
-# product as three tf32 ones (3xTF32)
+# dense TF32 on the tensor cores: the vote products of K1-D and K2-D run
+# there, each float32 product as three tf32 ones (3xTF32)
 TF32_FLOPS = 495e12
 
 
@@ -168,13 +170,14 @@ def _cuobjdump():
         if os.path.exists(c):
             return c
     raise RuntimeError('cuobjdump not found (PATH, $CUDA_HOME/bin, '
-                       'triton): the SASS of K2-D cannot be shown')
+                       'triton): the SASS of the products cannot be shown')
 
 
-def _tensor_core_sass(lib):
-    """{K2-D product kernel (mangled name): {tensor-core opcode: count}}
-    from cuobjdump -sass of ``lib``; raises where a product kernel has
-    none of the tf32 MMA instructions (HGMMA / HMMA ... TF32)."""
+def _tensor_core_sass(lib, who):
+    """{3xTF32 product kernel (mangled name): {tensor-core opcode: count}}
+    from cuobjdump -sass of ``lib``; raises where ``lib`` has no product
+    kernel or one has none of the tf32 MMA instructions (HGMMA / HMMA ...
+    TF32). ``who`` names the routing kernels whose products they are."""
     sass = subprocess.run([_cuobjdump(), '-sass', str(lib)],
                           capture_output=True, text=True,
                           check=True).stdout
@@ -191,8 +194,8 @@ def _tensor_core_sass(lib):
                     found[fn][word] = found[fn].get(word, 0) + 1
     if not found or not all(any('TF32' in op for op in ops)
                             for ops in found.values()):
-        raise AssertionError('K2-D product kernels without tf32 tensor-core '
-                             'instructions: %s' % found)
+        raise AssertionError('%s product kernels without tf32 tensor-core '
+                             'instructions: %s' % (who, found))
     return found
 
 
@@ -304,6 +307,19 @@ def _k2_work(shape, factored):
         return fwd + rev, nbytes
     return ((6 * b * i * l * j * o,
              ITERS * b * (10 * i * j * o + 9 * i * j + 9 * j * o)), nbytes)
+
+
+def _k1d_bound(shape):
+    """K1-D's (least ms, what bounds it, product ms, routing ms, bytes ms):
+    the vote product at the TF32 tensor-core peak, done three times
+    (3xTF32), the routing at the float32 SIMT peak."""
+    b, i, l, j, o = shape
+    flops, nbytes = _k1_work(shape, False)
+    product = 2 * b * i * l * j * o
+    bound_ms, bound_by = _bound_parts(
+        [(3 * product, TF32_FLOPS), (flops - product, F32_FLOPS)], nbytes)
+    return (bound_ms, bound_by, 3 * product / TF32_FLOPS * 1e3,
+            (flops - product) / F32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3)
 
 
 def _k2d_bound(shape):
@@ -456,12 +472,15 @@ def main() -> int:
         for line in lib.with_suffix('.log').read_text().splitlines():
             if 'registers' in line or 'spill' in line or 'entry' in line:
                 print('  ptxas: %s' % line.strip())
-    sass = _tensor_core_sass(libs['capsule_routing_bwd'])
-    print('phase 1 SASS (cuobjdump -sass): K2-D\'s %d product kernels '
-          '(gemm_tf32x3::gemm_kernel, one per operand layout and copy '
-          'width) issue %s' % (len(sass), '; '.join(sorted({', '.join(
-              '%d x %s' % (n, op) for op, n in sorted(ops.items()))
-              for ops in sass.values()}))))
+    for who, stem in (('K1-D', 'capsule_routing'),
+                      ('K2-D', 'capsule_routing_bwd')):
+        sass = _tensor_core_sass(libs[stem], who)
+        print('phase 1 SASS (cuobjdump -sass): %s\'s %d product kernels '
+              '(gemm_tf32x3::gemm_kernel, one per operand layout and copy '
+              'width) issue %s' % (who, len(sass), '; '.join(sorted({
+                  ', '.join('%d x %s' % (n, op) for op, n in
+                            sorted(ops.items()))
+                  for ops in sass.values()}))))
 
     # 2. K1-G against the plain routing
     rng = np.random.default_rng(0)
@@ -656,10 +675,30 @@ def main() -> int:
         best = _best_ms({
             'kernel': lambda: capsule_routing(x, w, ITERS),
             'plain': lambda: capsule_linear(x, w, ITERS, 'dynamic')})
-    timing['K1-D'] = (best['kernel'][0], best['plain'][0],
-                      _k1_work(D_HEAD, False), D_HEAD)
-    print('phase 6 K1-D at %s on %s: kernel %.4f ms, plain %.4f ms (best of '
-          '2 x 20)' % (D_HEAD, card, best['kernel'][0], best['plain'][0]))
+        timing['K1-D'] = (best['kernel'][0], best['plain'][0],
+                          _k1_work(D_HEAD, False), D_HEAD)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = cc.votes_fwd_plan(*D_HEAD, sms)
+        bound_ms, bound_by, prod_ms, route_ms, bytes_ms = _k1d_bound(D_HEAD)
+        print('phase 6 K1-D at %s on %s: kernel %.4f ms, plain %.4f ms (best '
+              'of 2 x 20); bound %.4f ms (%s: the vote product done three '
+              'times (3xTF32) at %.0f TFLOP/s %.4f ms + routing at %.0f '
+              'TFLOP/s %.4f ms; bytes %.4f ms), kernel / bound %.2f; plan on '
+              '%d SMs: clusters of %d, %d blocks, %d B of shared memory a '
+              'block (votes in it: %s)'
+              % (D_HEAD, card, best['kernel'][0], best['plain'][0], bound_ms,
+                 bound_by, TF32_FLOPS / 1e12, prod_ms, F32_FLOPS / 1e12,
+                 route_ms, bytes_ms, best['kernel'][0] / bound_ms, sms,
+                 plan.cluster, plan.blocks, plan.smem_bytes,
+                 plan.votes_in_smem))
+        sweep = bench.cluster_sweep(
+            'phase 6 K1-D on %s:' % card, bench.sweep_plans(
+                lambda c: cc.votes_fwd_plan(*D_HEAD, sms, cluster=c)),
+            lambda p: cc.routing_fwd_votes(x, w, ITERS, plan=p), dev, ('u',))
+        extra = {'K1-D': {'cluster': plan.cluster, 'blocks': plan.blocks,
+                          'bound_product_ms': prod_ms,
+                          'bound_routing_ms': route_ms,
+                          'sweep': {c: list(v) for c, v in sweep.items()}}}
 
     # 7. K2-G and K2-D against autograd through the plain routing
     for name, shape, kernel in (('K2-G', G_HEAD, cc.routing_bwd_factored),
@@ -696,28 +735,47 @@ def main() -> int:
             err[name] = max(err[name], max_abs)
         fns = {'kernel': lambda: kernel(x, w, dv, ITERS, True, True),
                'plain': plain}
-        if name == 'K2-D':  # dx only: the generator phase of the step
-            got, none = kernel(x, w, dv, ITERS, True, False)
-            max_abs, max_rel, scale, ok = _errors(got, ref_dx, K2_RTOL,
-                                                  K2_ATOL)
-            print('phase 7 K2-D %s dx only: max_abs_err %.3e; bound |d| <= '
-                  '%.0e |ref| + %.0e max|ref|: %s' % (
-                      shape, max_abs, K2_RTOL, K2_ATOL,
-                      'ok' if ok and none is None else 'FAIL'))
-            if not ok or none is not None:
-                raise AssertionError('K2-D with dx only disagrees with plain '
-                                     'autograd')
-            fns['kernel dx only'] = lambda: kernel(x, w, dv, ITERS, True,
-                                                   False)
+        # dx only: the generator phase of the step, for K2-D
+        got, none = kernel(x, w, dv, ITERS, True, False)
+        max_abs, max_rel, scale, ok = _errors(got, ref_dx, K2_RTOL, K2_ATOL)
+        print('phase 7 %s %s dx only: max_abs_err %.3e; bound |d| <= %.0e '
+              '|ref| + %.0e max|ref|: %s' % (
+                  name, shape, max_abs, K2_RTOL, K2_ATOL,
+                  'ok' if ok and none is None else 'FAIL'))
+        if not ok or none is not None:
+            raise AssertionError('%s with dx only disagrees with plain '
+                                 'autograd' % name)
+        fns['kernel dx only'] = lambda: kernel(x, w, dv, ITERS, True, False)
         best = _best_ms(fns, iters=10)
         timing[name] = (best['kernel'][0], best['plain'][0],
                         _k2_work(shape, name == 'K2-G'), shape)
-        print('phase 7 %s at %s on %s: kernel %.4f ms%s, plain autograd '
-              '(forward + backward) %.4f ms (best of 2 x 10, in turns)'
+        print('phase 7 %s at %s on %s: kernel %.4f ms with dx and dW, %.4f '
+              'ms with dx only, plain autograd (forward + backward) %.4f ms '
+              '(best of 2 x 10, in turns)'
               % (name, shape, card, best['kernel'][0],
-                 '' if name == 'K2-G' else ' with dx and dW, %.4f ms with '
-                 'dx only' % best['kernel dx only'][0], best['plain'][0]))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+                 best['kernel dx only'][0], best['plain'][0]))
+        if name == 'K2-G':
+            b_, i_, _, j_, o_ = shape
+            plan = cc.factored_bwd_plan(
+                b_, i_, j_, ITERS, sms, max_clusters=cc.card_clusters(
+                    dev, i_, j_, o_, ITERS))
+            bound_ms, bound_by = _bound(*_k2_work(shape, True))
+            print('phase 7 K2-G bound %.4f ms (%s), kernel / bound %.2f; plan '
+                  'on %d SMs: clusters of %d, %d blocks, %d B of shared '
+                  'memory a block (stashes, couplings and logit gradient in '
+                  'it: %s)' % (bound_ms, bound_by,
+                               best['kernel'][0] / bound_ms, sms,
+                               plan.cluster, plan.blocks, plan.smem_bytes,
+                               plan.in_smem))
+            sweep = bench.cluster_sweep(
+                'phase 7 K2-G on %s:' % card, bench.sweep_plans(
+                    lambda c: cc.factored_bwd_plan(b_, i_, j_, ITERS, sms,
+                                                   cluster=c),
+                    cc.FACTORED_CLUSTER_SIZES),
+                lambda p: kernel(x, w, dv, ITERS, True, True, plan=p), dev)
+            extra['K2-G'] = {'ms_dx_only': best['kernel dx only'][0],
+                             'cluster': plan.cluster, 'blocks': plan.blocks,
+                             'sweep': {c: list(v) for c, v in sweep.items()}}
     plan = cc.votes_bwd_plan(*D_HEAD, ITERS, sms)
     bound_ms, bound_by, prod_ms, route_ms, bytes_ms = _k2d_bound(D_HEAD)
     (products, routing), nbytes = _k2_work(D_HEAD, False)
@@ -736,10 +794,10 @@ def main() -> int:
                           F32_FLOPS / 1e12, route_ms, nbytes / 1e6,
                           HBM_BYTES / 1e12, bytes_ms, f32_ms,
                           timing['K2-D'][0] / bound_ms))
-    k2d_extra = {'ms_dx_only': best['kernel dx only'][0],
-                 'cluster': plan.cluster, 'blocks': plan.blocks,
-                 'bound_products_ms': prod_ms, 'bound_routing_ms': route_ms,
-                 'float32_bound_ms': f32_ms}
+    extra['K2-D'] = {'ms_dx_only': best['kernel dx only'][0],
+                     'cluster': plan.cluster, 'blocks': plan.blocks,
+                     'bound_products_ms': prod_ms,
+                     'bound_routing_ms': route_ms, 'float32_bound_ms': f32_ms}
 
     # 8. the training path
     tcfg = cfg_from_file(TRAIN_CFG)
@@ -1194,12 +1252,13 @@ def main() -> int:
                         'tools/capsule_variants.py:218')}
     record = []
     for name, fn in kernels.items():
-        extra = {}
+        more = extra.get(name, {})
         if name in cc.KERNELS:
             ms, plain_ms, work, shape = timing[name]
             if name == 'K2-D':
                 bound_ms, bound_by = _k2d_bound(shape)[:2]
-                extra = k2d_extra
+            elif name == 'K1-D':
+                bound_ms, bound_by = _k1d_bound(shape)[:2]
             else:
                 bound_ms, bound_by = _bound(*work)
             library_ms, shape, n = None, list(shape), train_launches[name]
@@ -1208,7 +1267,7 @@ def main() -> int:
             ms, plain_ms, bound_ms, bound_by = (v['ms'], v['plain_ms'],
                                                 v['bound_ms'], v['bound_by'])
             library_ms, shape, n = None, v['shape'], v_launches[name]
-            extra = {'nb': v['nb'], 'sweep': v['sweep']}
+            more = {'nb': v['nb'], 'sweep': v['sweep']}
         else:  # totals over the flagship's launches per G forward / step
             ms, plain_ms, bound_ms, bound_by, library_ms, shape = timing[name]
             n = fused_launches[name]
@@ -1218,7 +1277,7 @@ def main() -> int:
             'launches': n, 'max_abs_err': err[name],
             'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
             'bound_by': bound_by, 'library_ms': library_ms,
-            'shape': shape}, **extra))
+            'shape': shape}, **more))
     print(card)
     print(json.dumps({'kernels': record}))
     print(json.dumps({'ok': True, 'device': {

@@ -24,10 +24,13 @@ over every sample and input capsule) and the softmax pullback subtracts
 nearly equal row sums, so float32 orders differ by more than the forward.
 The JAX package's own bar for its fused backward is 2e-2 mean relative
 error (tests/test_capsule_pallas_bwd.py). K2-D (the votes form: 3xTF32
-tensor-core products, the routing on a cluster of blocks per sample) is
-also held to that bar through its plan at every cluster size and every
-need_dx / need_dw combination, and two calls must agree bit for bit (no
-atomics; cluster reductions and split-K sums in a fixed order).
+tensor-core products, the routing on a cluster of blocks per sample) and
+K2-G (the factored form on a cluster of blocks per sample) are also held to
+that bar through their plans at every cluster size and every need_dx /
+need_dw combination, and two calls must agree bit for bit (no atomics;
+cluster reductions and split-K sums in a fixed order). K1-D (3xTF32 vote
+product, cluster routing) is held to K1's bar through its plan at every
+cluster size.
 
 K3 (fused BN+GLU) is held to ``bn_glu_reference``: float32 at rtol/atol
 1e-6 (the same float32 arithmetic, elementwise; only the exponential's and
@@ -256,6 +259,175 @@ def test_k2d_refused_launch_raises(card):
         cc.routing_bwd_votes(x, w, dv, 3, plan=one._replace(
             votes_in_smem=True))
     assert cc.routing_bwd_votes.launches == before
+
+
+# K2-G (factored form) through its plan: the flagship G head, ragged
+# capsule counts, out_length 16, J smaller than most clusters, and an odd
+# input-capsule count
+K2G_SHAPES = [(32, 48, 8, 1024, 32), (3, 13, 8, 1000, 32), (2, 16, 8, 512, 16),
+              (4, 48, 8, 3, 32), (5, 7, 8, 129, 16)]
+
+
+def _k2g_plan(shape, cluster=None):
+    bsz, in_caps, _, out_caps, out_len = shape
+    return cc.factored_bwd_plan(
+        bsz, in_caps, out_caps, 3,
+        sms=torch.cuda.get_device_properties(0).multi_processor_count,
+        cluster=cluster, max_clusters=cc.card_clusters(
+            torch.device('cuda', 0), in_caps, out_caps, out_len, 3))
+
+
+@pytest.mark.parametrize('shape', K2G_SHAPES)
+@pytest.mark.parametrize('cluster', [1, 2, 3, 4, 8])
+def test_k2g_every_cluster_size_and_need_matches_plain_autograd(card, shape,
+                                                                cluster):
+    """K2-G forced through the plan at each cluster size (at 1 and 2 the
+    stashes, couplings and logit gradient of the flagship live in the
+    scratch), for each need_dx / need_dw combination, against autograd
+    through the plain routing at K2's bar."""
+    x, w, dv = _k2d_inputs(shape, card, seed=4)
+    plan = _k2g_plan(shape, cluster)
+    assert plan.cluster == min(cluster, shape[3])
+    ref_dx, ref_dw = _plain_grads(x, w, dv, 3)
+    for need_dx, need_dw in ((True, True), (True, False), (False, True),
+                             (False, False)):
+        before = cc.routing_bwd_factored.launches
+        dx, dw = cc.routing_bwd_factored(x, w, dv, 3, need_dx, need_dw,
+                                         plan=plan)
+        torch.cuda.synchronize()
+        assert cc.routing_bwd_factored.launches == before + (need_dx or
+                                                             need_dw)
+        assert (dx is None) != need_dx and (dw is None) != need_dw
+        if need_dx:
+            assert_k2_close(dx, ref_dx)
+        if need_dw:
+            assert_k2_close(dw, ref_dw)
+
+
+def test_k2g_default_plan_at_the_flagship(card):
+    """The wrapper's own plan at the flagship G head: the largest cluster
+    whose 32 clusters the card holds at once (3 or 4 on an H100's 132 SMs),
+    everything in shared memory; the plan's shared memory and scratch as the
+    library counts them."""
+    shape = K2G_SHAPES[0]
+    plan = _k2g_plan(shape)
+    held = cc.card_clusters(torch.device('cuda', 0), 48, 1024, 32, 3)
+    if torch.cuda.get_device_properties(0).multi_processor_count == 132:
+        assert plan.cluster in (3, 4) and plan.in_smem
+        assert held(plan.cluster, True) >= 32
+        assert plan.cluster == 4 or 0 < held(4, True) < 32
+    x, w, dv = _k2d_inputs(shape, card, seed=6)
+    dx, dw = cc.routing_bwd_factored(x, w, dv, 3)
+    ref_dx, ref_dw = _plain_grads(x, w, dv, 3)
+    assert_k2_close(dx, ref_dx)
+    assert_k2_close(dw, ref_dw)
+    lib = cc._kernels()
+    for s in K2G_SHAPES:
+        for c in cc.FACTORED_CLUSTER_SIZES:
+            p = _k2g_plan(s, c)
+            assert lib['bwd_smem'](s[1], s[3], 3, p.cluster,
+                                   int(p.in_smem)) == p.smem_bytes
+            big = lib['bwd_scratch'](s[1], s[3], 3, p.cluster)
+            assert big == cc._factored_floats(s[1], s[3], 3, p.cluster)[1]
+
+
+def test_k2g_is_deterministic(card):
+    """No atomics; the cluster reductions and dx's sum over the slices
+    combine in rank order: two calls give the same bits."""
+    x, w, dv = _k2d_inputs(K2G_SHAPES[0], card, seed=8)
+    first = cc.routing_bwd_factored(x, w, dv, 3)
+    second = cc.routing_bwd_factored(x, w, dv, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+def test_k2g_refused_launch_raises(card):
+    """A launch that the library or the card refuses raises and counts no
+    launch; nothing falls back: a cluster of 16, and everything kept in
+    shared memory at a cluster of 1 (over 400 KB a block)."""
+    shape = K2G_SHAPES[0]
+    x, w, dv = _k2d_inputs(shape, card)
+    before = cc.routing_bwd_factored.launches
+    plan = _k2g_plan(shape)
+    with pytest.raises(RuntimeError, match='failed to launch'):
+        cc.routing_bwd_factored(x, w, dv, 3, plan=plan._replace(cluster=16))
+    one = _k2g_plan(shape, 1)
+    with pytest.raises(RuntimeError, match='failed to launch'):
+        cc.routing_bwd_factored(x, w, dv, 3, plan=one._replace(in_smem=True))
+    assert cc.routing_bwd_factored.launches == before
+
+
+def _k1d_plan(shape, cluster=None):
+    return cc.votes_fwd_plan(*shape, sms=torch.cuda.get_device_properties(
+        0).multi_processor_count, cluster=cluster)
+
+
+@pytest.mark.parametrize('shape', K2D_SHAPES)
+@pytest.mark.parametrize('cluster', [1, 2, 4, 8])
+@pytest.mark.parametrize('iters', [1, 3])
+def test_k1d_every_cluster_size_matches_plain_routing(card, shape, cluster,
+                                                      iters):
+    """K1-D (3xTF32 vote product, routing on a cluster) forced through the
+    plan at each cluster size (at 1 the flagship's votes stay in L2)
+    against the plain routing at K1's bar."""
+    bsz, in_caps, in_len, out_caps, out_len = shape
+    x, w = _inputs((bsz, in_caps, in_len), (out_caps, out_len, in_len), card,
+                   seed=9)
+    plan = _k1d_plan(shape, cluster)
+    assert plan.cluster == min(cluster, out_caps)
+    before = cc.routing_fwd_votes.launches
+    with torch.no_grad():
+        out = cc.routing_fwd_votes(x, w, iters, plan=plan)
+        ref = capsule_linear(x, w, iters, 'dynamic')
+    torch.cuda.synchronize()
+    assert cc.routing_fwd_votes.launches == before + 1
+    assert_k1_close(out, ref)
+
+
+def test_k1d_default_plan_at_the_flagship(card):
+    """The wrapper's own plan at the flagship D head: clusters of 4 (128
+    blocks) with the vote slices in shared memory; its shared memory as the
+    library counts it."""
+    shape = K2D_SHAPES[0]
+    plan = _k1d_plan(shape)
+    if torch.cuda.get_device_properties(0).multi_processor_count == 132:
+        assert (plan.cluster, plan.blocks, plan.votes_in_smem) == (4, 128,
+                                                                   True)
+    smem = cc._kernels()['fwd_votes_smem']
+    for s in K2D_SHAPES:
+        for c in (1, 2, 4, 8):
+            p = _k1d_plan(s, c)
+            assert smem(s[1], s[3], s[4], p.cluster,
+                        int(p.votes_in_smem)) == p.smem_bytes
+
+
+def test_k1d_is_deterministic(card):
+    bsz, in_caps, in_len, out_caps, out_len = K2D_SHAPES[0]
+    x, w = _inputs((bsz, in_caps, in_len), (out_caps, out_len, in_len), card,
+                   seed=10)
+    with torch.no_grad():
+        first = capsule_routing(x, w, 3)
+        second = capsule_routing(x, w, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_k1d_refused_launch_raises(card):
+    """A cluster of 16, and the votes kept in shared memory at a cluster of
+    1 (245 KB a block): the launch raises and counts nothing."""
+    shape = K2D_SHAPES[0]
+    bsz, in_caps, in_len, out_caps, out_len = shape
+    x, w = _inputs((bsz, in_caps, in_len), (out_caps, out_len, in_len), card)
+    before = cc.routing_fwd_votes.launches
+    with torch.no_grad():
+        with pytest.raises(RuntimeError, match='failed to launch'):
+            cc.routing_fwd_votes(x, w, 3, plan=_k1d_plan(shape)._replace(
+                cluster=16))
+        with pytest.raises(RuntimeError, match='failed to launch'):
+            cc.routing_fwd_votes(x, w, 3, plan=_k1d_plan(shape, 1)._replace(
+                votes_in_smem=True))
+    assert cc.routing_fwd_votes.launches == before
 
 
 def test_kernels_raise_on_what_they_do_not_take(card):

@@ -28,61 +28,38 @@
 //
 // The discriminator class head (16 input capsules of length 8*ndf = 512,
 // 201 output capsules of length 16) takes the second entry point,
-// capsule_routing_votes_fwd. There the factored form stops paying: a_j and
-// y_j would be 512 floats per output capsule, while the votes of a sample
-// are only 16 x 201 x 16 floats = 206 KB. So the votes are materialised,
-// as the TPU kernel does: a tiled float32 product (gemm_f32.cuh, 1.7 GFLOP
-// at a batch of 32) writes u[b, i, j, o] to a scratch of 6.6 MB that stays
-// in L2, and one block per sample routes over it with the couplings and
-// logits (I x J floats each) and the outputs (J x O) in shared memory.
-// What bounds this form is the vote product's float32 arithmetic.
+// capsule_routing_votes_fwd (K1-D). There the factored form stops paying:
+// a_j and y_j would be 512 floats per output capsule, while the votes of a
+// sample are only 16 x 201 x 16 floats = 206 KB. So the votes are
+// materialised, as the TPU kernel does, in two launches:
+// - the vote product u = x . W^T (1.69 GFLOP at a batch of 32) on the
+//   tensor cores, float32-faithful (3xTF32 wgmma, gemm_tf32x3.cuh: the
+//   product K2-D recomputes first), into a 6.6 MB scratch that stays in L2;
+// - the routing on a cluster of C blocks per sample (C from
+//   ops/capsule_cuda.py::votes_fwd_plan: 4 at the flagship, 128 blocks on
+//   132 SMs), each block owning about J / C output capsules with its vote
+//   slice (52 KB at C = 4), couplings, logits and outputs in shared memory.
+//   The softmax's (max, sum of exp) per input capsule crosses the cluster
+//   through distributed shared memory, combined in rank order: the same
+//   bits in every block and in every call. The passes are K2-D's forward
+//   recompute without its stashes (capsule_common.cuh::route_forward).
+// What bounds it: the product's tensor-core work (5.06 GFLOP of tf32 at
+// 3xTF32, 0.010 ms at the TF32 peak) and the routing's latency: one cluster
+// barrier and three block barriers a pass over a few thousand elements;
+// the routing's arithmetic is small (0.022 GFLOP).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 
-#include "gemm_f32.cuh"
+#include "capsule_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kL = 8;  // in_length; two float4 per capsule row
+using namespace capsule;
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ void load8(const float* p, float (&r)[kL]) {
-  const float4 lo = reinterpret_cast<const float4*>(p)[0];
-  const float4 hi = reinterpret_cast<const float4*>(p)[1];
-  r[0] = lo.x; r[1] = lo.y; r[2] = lo.z; r[3] = lo.w;
-  r[4] = hi.x; r[5] = hi.y; r[6] = hi.z; r[7] = hi.w;
-}
-
-__device__ __forceinline__ void load8_global(const float* p, float (&r)[kL]) {
-  const float4 lo = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  r[0] = lo.x; r[1] = lo.y; r[2] = lo.z; r[3] = lo.w;
-  r[4] = hi.x; r[5] = hi.y; r[6] = hi.z; r[7] = hi.w;
-}
-
-__device__ __forceinline__ float dot8(const float (&a)[kL],
-                                      const float (&b)[kL]) {
-  float s = 0.f;
-#pragma unroll
-  for (int l = 0; l < kL; ++l) s = fmaf(a[l], b[l], s);
-  return s;
-}
+constexpr int kThreads = kRouteThreads;
+constexpr int kWarps = kRouteWarps;
 
 // Shared memory: x [I][8] | a [J][8] | warp partials [kWarps][I] |
 // max [I] | 1/sum [I].
@@ -221,100 +198,50 @@ cudaError_t launch(const float* x, const float* w, float* out, int B, int I,
 
 // ---- materialised votes (in_length > 8) ----------------------------------
 
-// Shared memory: logits [I*J] | couplings [I*J] | outputs [J*O], each
-// rounded up to whole float4 so that the outputs can be read as float4.
-__host__ __device__ inline size_t round4(size_t n) { return (n + 3) & ~(size_t)3; }
-
-__host__ __device__ inline size_t votes_smem_bytes(int I, int J, int O) {
-  return sizeof(float) * (2 * round4((size_t)I * J) + (size_t)J * O);
+// Shared memory of one block of K1-D's routing, in floats: the vote slice
+// u [I][njm][O] (only where it fits, `keep`) | couplings [I][njm] | outputs
+// [njm][O] | logits [I][njm] | exchange rows [2][2 I], njm = ceil(J / C).
+__host__ __device__ inline size_t votes_fwd_smem_floats(int I, int J, int O,
+                                                        int C, bool keep) {
+  const size_t nj = (size_t)(J + C - 1) / C;
+  return (keep ? (size_t)I * nj * O : 0) + 2 * (size_t)I * nj + nj * O +
+         4 * (size_t)I;
 }
 
-// Dynamic routing of one sample per block over u [B, I, J, O]. A (j, o)
-// loop runs to a multiple of 32 so whole warps take part in the squash
-// reduction; the O values of one j sit in O neighbouring lanes.
+// Dynamic routing of u [B, I, J, O] on clusters of C blocks, one cluster a
+// sample; the block of rank q owns the output capsules [q J / C,
+// (q + 1) J / C) and writes their outputs.
 template <int O>
-__global__ void __launch_bounds__(kThreads)
-routing_votes_fwd_kernel(const float* __restrict__ u, float* __restrict__ out,
-                         int I, int J, int iters) {
+__global__ void __launch_bounds__(kRouteThreads)
+routing_votes_fwd_cluster_kernel(const float* __restrict__ u,
+                                 float* __restrict__ out, int I, int J, int R,
+                                 int keep) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int njm = (J + C - 1) / C;
   extern __shared__ float4 smem4[];
-  float* bl = reinterpret_cast<float*>(smem4);
-  float* cs = bl + round4((size_t)I * J);
-  float* vs = cs + round4((size_t)I * J);
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const float* ub = u + (size_t)b * I * J * O;
-  const int IJ = I * J;
-  const int JO = J * O;
-  const int JO32 = (JO + 31) & ~31;
-  for (int p = tid; p < IJ; p += kThreads) bl[p] = 0.f;
-  __syncthreads();
-  for (int r = 0; r < iters; ++r) {
-    // couplings: softmax of each row i over the output capsules
-    for (int i = warp; i < I; i += kWarps) {
-      const float* row = bl + (size_t)i * J;
-      float m = -INFINITY;
-      for (int j = lane; j < J; j += 32) m = fmaxf(m, row[j]);
-      m = warp_max(m);
-      float z = 0.f;
-      for (int j = lane; j < J; j += 32) z += expf(row[j] - m);
-      const float zi = 1.f / warp_sum(z);
-      for (int j = lane; j < J; j += 32)
-        cs[(size_t)i * J + j] = expf(row[j] - m) * zi;
-    }
-    __syncthreads();
-    const bool last = (r == iters - 1);
-    for (int t = tid; t < JO32; t += kThreads) {
-      const bool valid = t < JO;
-      const int j = t / O;
-      float s = 0.f;
-      if (valid)
-        for (int i = 0; i < I; ++i)
-          s = fmaf(cs[(size_t)i * J + j], ub[(size_t)i * JO + t], s);
-      float n2 = s * s;
-#pragma unroll
-      for (int off = O / 2; off > 0; off >>= 1)
-        n2 += __shfl_xor_sync(0xffffffffu, n2, off);
-      const float v = s * (n2 / (1.f + n2) * rsqrtf(n2 + 1e-8f));
-      if (valid) {
-        if (last) out[(size_t)b * JO + t] = v;
-        else vs[t] = v;
-      }
-    }
-    __syncthreads();
-    if (!last) {
-      for (int p = tid; p < IJ; p += kThreads) {
-        const int j = p % J;
-        const float4* up = reinterpret_cast<const float4*>(ub + (size_t)p * O);
-        const float4* vp = reinterpret_cast<const float4*>(vs + (size_t)j * O);
-        float acc = 0.f;
-#pragma unroll
-        for (int q = 0; q < O / 4; ++q) {
-          const float4 a = __ldg(up + q);
-          const float4 c = vp[q];
-          acc = fmaf(a.x, c.x, fmaf(a.y, c.y, fmaf(a.z, c.z, fmaf(a.w, c.w, acc))));
-        }
-        bl[p] += acc;
-      }
-      __syncthreads();
-    }
-  }
+  float* us = reinterpret_cast<float*>(smem4);
+  float* cs = us + (keep ? (size_t)I * njm * O : 0);
+  float* vs = cs + (size_t)I * njm;
+  float* bl = vs + (size_t)njm * O;
+  float* xch = bl + (size_t)I * njm;
+  const VoteSlice sl = vote_slice<O>(C, (int)cluster.block_rank(), u, us, bl,
+                                     xch, I, J, keep != 0);
+  int xp = 0;
+  route_forward<O, false>(cluster, sl, bl, cs, nullptr, vs, xch, xp,
+                          out + ((size_t)sl.b * J + sl.j0) * O, I, C, R);
+  // no block leaves while another may still read its exchange rows
+  cluster.sync();
 }
 
 template <int O>
 cudaError_t launch_votes(const float* u, float* out, int B, int I, int J,
-                         int iters, cudaStream_t stream) {
-  const size_t smem = votes_smem_bytes(I, J, O);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        routing_votes_fwd_kernel<O>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  routing_votes_fwd_kernel<O><<<B, kThreads, smem, stream>>>(u, out, I, J,
-                                                             iters);
-  return cudaGetLastError();
+                         int R, int C, bool keep, cudaStream_t stream) {
+  return launch_cluster(routing_votes_fwd_cluster_kernel<O>, B, C,
+                        sizeof(float) * votes_fwd_smem_floats(I, J, O, C,
+                                                              keep),
+                        stream, u, out, I, J, R, (int)keep);
 }
 
 }  // namespace
@@ -332,9 +259,7 @@ int capsule_routing_fwd(const void* x, const void* w, void* out, int B, int I,
                         int J, int O, int iters, int device, void* stream) {
   if (B <= 0 || I <= 0 || I > kThreads || J <= 0 || iters <= 0)
     return (int)cudaErrorInvalidValue;
-  // This library links its own CUDA runtime, whose current device is
-  // separate from PyTorch's.
-  cudaError_t se = cudaSetDevice(device);
+  cudaError_t se = begin_call(device);
   if (se != cudaSuccess) return (int)se;
   const float* xf = static_cast<const float*>(x);
   const float* wf = static_cast<const float*>(w);
@@ -349,32 +274,48 @@ int capsule_routing_fwd(const void* x, const void* w, void* out, int B, int I,
   return (int)e;
 }
 
-size_t capsule_routing_votes_smem_bytes(int I, int J, int O) {
-  return votes_smem_bytes(I, J, O);
+size_t capsule_routing_votes_smem_bytes(int I, int J, int O, int cluster,
+                                        int keep_votes) {
+  return sizeof(float) *
+         votes_fwd_smem_floats(I, J, O, cluster, keep_votes != 0);
 }
 
 // x [B, I, L], w [J, O, L], votes scratch [B, I, J, O], out [B, J, O]; all
 // float32, contiguous and 16-byte aligned, on `device`. Two launches on
-// `stream`: the vote product, then the routing. Returns the CUDA error code
-// (0 = success).
+// `stream`: the vote product u = x . W^T (3xTF32 on the tensor cores,
+// gemm_tf32x3.cuh), then the routing on clusters of `cluster` blocks (1..8,
+// at most J) per sample, each block's vote slice in shared memory where
+// keep_votes is set (ops/capsule_cuda.py::votes_fwd_plan chooses both).
+// Returns the CUDA error code (0 = success); a cluster launch that the card
+// refuses returns its error, and nothing falls back to another form.
 int capsule_routing_votes_fwd(const void* x, const void* w, void* votes,
                               void* out, int B, int I, int L, int J, int O,
-                              int iters, int device, void* stream) {
-  if (B <= 0 || I <= 0 || L <= 0 || J <= 0 || iters <= 0)
+                              int iters, int cluster, int keep_votes,
+                              int device, void* stream) {
+  if (B <= 0 || I <= 0 || L <= 0 || J <= 0 || iters <= 0 || cluster < 1 ||
+      cluster > kMaxCluster || cluster > J)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = begin_call(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* u = static_cast<float*>(votes);
-  // u [B*I, J*O] = x [B*I, L] . w[J*O, L]^T
-  e = capsule_gemm::gemm_f32(static_cast<const float*>(x),
-                             static_cast<const float*>(w), u, B * I, J * O, L,
-                             L, 1, 1, L, (long long)J * O, st);
+  const int kb = gemm_tf32x3::kBK;
+  // u [B*I, J*O] = x [B*I, L] . w [J*O, L]^T (both K-major)
+  e = gemm_tf32x3::gemm(static_cast<const float*>(x), true, L,
+                        static_cast<const float*>(w), true, L, u, J * O,
+                        B * I, J * O, L, 1, (L + kb - 1) / kb * kb, nullptr,
+                        st);
   if (e != cudaSuccess) return (int)e;
   float* of = static_cast<float*>(out);
   switch (O) {
-    case 16: e = launch_votes<16>(u, of, B, I, J, iters, st); break;
-    case 32: e = launch_votes<32>(u, of, B, I, J, iters, st); break;
+    case 16:
+      e = launch_votes<16>(u, of, B, I, J, iters, cluster, keep_votes != 0,
+                           st);
+      break;
+    case 32:
+      e = launch_votes<32>(u, of, B, I, J, iters, cluster, keep_votes != 0,
+                           st);
+      break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)e;

@@ -1,10 +1,9 @@
 // Capsule dynamic-routing backward (K2) for Hopper, sm_90a.
 //
 // Replaces text2img_ekl_tpu/ops/capsule_pallas.py::_bwd_kernel (via
-// _backward): recompute the forward, stashing the couplings c, the
-// pre-squash outputs s and the outputs v of every pass, then reverse
-// squash, the agreement update and the softmax, and pull the vote
-// gradient du back through u = W x:
+// _backward): recompute the forward, stashing what the reverse passes need,
+// then reverse squash, the agreement update and the softmax, and pull the
+// vote gradient du back through u = W x:
 //   dx[b, i] = sum_{j,o} du[b, i, j, o] W[j, o, :]        (per sample)
 //   dW[j, o] = sum_{b,i} du[b, i, j, o] x[b, i, :]        (over the batch)
 // The JAX package sends the discriminator head to XLA autodiff instead (a
@@ -14,38 +13,66 @@
 // samples run in parallel blocks, so dW is a second pass in both forms
 // below, with no atomics: the result does not depend on the schedule.
 //
-// (1) Factored form, in_length 8 (the generator head: 48 capsules of 8 ->
-//     1024 of 32). The votes of one sample are 6.3 MB, so, as in K1, they
-//     never exist. Every du term is rank one, c_ij ds_j or db_ij v_j, so
+// Both forms route one sample on a cluster of C blocks (C from
+// ops/capsule_cuda.py: factored_bwd_plan and votes_bwd_plan). Block `rank`
+// owns the output capsules [rank J / C, (rank + 1) J / C). Every
+// per-sample quantity is local to a slice but the sums over j: the
+// softmax's (max, sum of exp) per input capsule in each forward pass and
+// rho_i = sum_j c_ij dc_ij in each reverse pass (and, in the factored
+// form, dx_i). Those rows go through distributed shared memory behind
+// cluster barriers, double buffered, and are combined in rank order, so
+// every block gets the same bits and two calls give the same result.
+//
+// (1) Factored form, in_length 8 (the generator head, K2-G: 48 capsules of
+//     8 -> 1024 of 32). The votes of one sample are 6.3 MB, so, as in K1,
+//     they never exist. Every du term is rank one, c_ij ds_j or db_ij v_j,
+//     so
 //       dc_ij = x_i . e_j,  e_j = W_j^T ds_j
 //       dx_i += sum_j c_ij e_j + sum_j db_ij t_j,  t_j = W_j^T v_j(prev)
 //       dW_j += ds_j (x) y_j + v_j(prev) (x) z_j,  z_j = sum_i db_ij x_i
 //       dv_j(prev) = W_j z_j
-//     and every per-j quantity is 8 floats. One 512-thread block handles a
-//     sample: x, the current a_j, e_j, t_j, z_j (8 floats per output
-//     capsule) and the per-warp dx partials sit in shared memory (161 KB
-//     at the flagship head); the per-pass a_j and y_j, the logit gradient
-//     db_ij (I x J) and dv_j live in a per-sample scratch that stays in
-//     L2. The block writes its dW factors (ds_j, y_j) and (v_j, z_j) per
-//     pass; a second kernel sums dW_j = sum over samples and passes of
-//     their outer products, one block per output capsule. What bounds it:
-//     the per-(i, j) exponentials and 8-wide dots, about 30 per pair per
-//     pass, and the L2 traffic of the db scratch.
-// (2) Materialised votes, in_length > 8 (the discriminator class head:
-//     16 x 512 -> 201 x 16, 206 KB of votes per sample). Four launches:
+//     and every per-j quantity is 8 floats. Three launches:
+//     - W's rows as float4 planes (wt, 1 MB), so that lanes reading the
+//       rows of consecutive output capsules read consecutive 16-byte words:
+//       read in place, 1 KB apart, they cost 8x the L1 wavefronts, which
+//       made the capsule phases 4x slower;
+//     - the routing reversal, C = 3 at the flagship's batch of 32 (96
+//       blocks of 341-342 output capsules): a block holds x, its slice's
+//       a_j (forward) or e_j (reverse), the stashes of a_j and y_j of every
+//       pass, the couplings c_ij of the current pass and the running logit
+//       gradient db_ij (I x nj floats each) in shared memory, 218 KB, one
+//       block of 512 threads per SM; the plan takes the largest cluster of
+//       which the card holds all B at once (an H100 holds 30 clusters of 4
+//       such blocks, its GPCs leaving SMs over, so that 4 would run in two
+//       waves). At C = 1 or 2 the stashes, c and db live in a per-block
+//       scratch in L2. Each pass computes the exponentials once, into c.
+//       Work over (i, j) goes to warps by input capsule (rows) and lanes by
+//       output capsule (columns), so that a row's sum is a warp reduction;
+//       work per output capsule (sums over i, products with W_j) goes to
+//       two lanes each, one per half of the rows i or of W_j's O rows,
+//       combined by a shuffle. Cluster barriers: one per forward pass, one
+//       per reverse pass but the last (pass 0's logits are constant), two
+//       for dx's rank-order sum. Each pass writes its dW factors as the
+//       pairs dv (x) g y and s (x) (k2 y + g z_next), the same sum as
+//       ds (x) y + v (x) z_next;
+//     - the sum dW_j = sum over samples and passes of the factors' outer
+//       products, one block per output capsule, no atomics.
+//     What bounds it: latency. The arithmetic (about 30 operations per
+//     (i, j) pair and pass, 0.97 GFLOP at the flagship) takes 0.014 ms at
+//     the float32 peak; the routing runs 24 phases between barriers, each
+//     1-27 k cycles (clock64 stamps): the per-capsule phases, which read W
+//     from L2 (1 MB a sample a pass), about half of the time, the per-(i, j)
+//     phases most of the rest, all with 16 warps an SM to hide the latency
+//     of shared memory, L2 and the exponentials.
+// (2) Materialised votes, in_length > 8 (the discriminator class head,
+//     K2-D: 16 x 512 -> 201 x 16, 206 KB of votes per sample). Four
+//     launches:
 //     - the vote product u = x . W^T, recomputed into a scratch;
-//     - the routing reversal, on a cluster of C blocks per sample (C from
-//       ops/capsule_cuda.py::votes_bwd_plan: 4 at the flagship, 128 blocks
-//       on 132 SMs). Each block owns a slice of about J / C output
-//       capsules and holds its vote slice (52 KB at C = 4), the stashes of
-//       c, db, s, ds and v of every pass and its working rows in shared
-//       memory. All per-sample work is local to a slice but two
-//       reductions over j: the softmax's (max, sum of exp) per input
-//       capsule in each forward pass and rho_i = sum_j c_ij dc_ij in each
-//       reverse pass. Those 16-float rows go through distributed shared
-//       memory behind cluster barriers and are combined in rank order, so
-//       every block gets the same bits. du is formed once at the end from
-//       the stashes and written once;
+//     - the routing reversal. Each block holds its vote slice (52 KB at
+//       C = 4), the stashes of c, db, s, ds and v of every pass and its
+//       working rows in shared memory. The forward recompute is K1-D's
+//       routing with stashes (capsule_common.cuh::route_forward). du is
+//       formed once at the end from the stashes and written once;
 //     - dx = du . W and dW = du^T . x, whose contraction over the batch is
 //       the sum.
 //     The three products run on the tensor cores, float32-faithful
@@ -62,361 +89,458 @@
 #include <math.h>
 #include <stddef.h>
 
-#include <cooperative_groups.h>
-
-#include "gemm_tf32x3.cuh"
+#include "capsule_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kL = 8;
+using namespace capsule;
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+// ---- (1) factored form ----------------------------------------------------
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ void load8(const float* p, float (&r)[kL]) {
-  const float4 lo = reinterpret_cast<const float4*>(p)[0];
-  const float4 hi = reinterpret_cast<const float4*>(p)[1];
+// Rows of 8 floats per output capsule ([nj][8]: a, e, t and the stashes of
+// a and y) are two planes of float4: (j, l) at (l / 4) 4 njm + 4 j + l % 4,
+// so that lanes reading consecutive j read consecutive 16-byte words.
+__device__ __forceinline__ void ld_row(const float* p, int njm, int j,
+                                       float (&r)[kL]) {
+  const float4 lo = reinterpret_cast<const float4*>(p)[j];
+  const float4 hi = reinterpret_cast<const float4*>(p)[njm + j];
   r[0] = lo.x; r[1] = lo.y; r[2] = lo.z; r[3] = lo.w;
   r[4] = hi.x; r[5] = hi.y; r[6] = hi.z; r[7] = hi.w;
 }
 
-__device__ __forceinline__ void store8(float* p, const float (&r)[kL]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(r[0], r[1], r[2], r[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(r[4], r[5], r[6], r[7]);
+// half h (0: l < 4, 1: l >= 4) of a row of 8
+__device__ __forceinline__ float4 half4(const float (&r)[kL], int h) {
+  return h ? make_float4(r[4], r[5], r[6], r[7])
+           : make_float4(r[0], r[1], r[2], r[3]);
 }
 
-__device__ __forceinline__ float dot8(const float (&a)[kL],
-                                      const float (&b)[kL]) {
-  float s = 0.f;
+// plane h of row j; each lane of a pair stores one
+__device__ __forceinline__ void st_half(float* p, int njm, int j, int h,
+                                        const float (&r)[kL]) {
+  reinterpret_cast<float4*>(p)[h * njm + j] = half4(r, h);
+}
+
+// The sum of v[0..7] over the warp's 32 lanes: lane L gets component
+// L % 8, by halving the vector at each of three exchanges, then two plain
+// steps (9 shuffles instead of 40; a fixed order).
+__device__ __forceinline__ float warp_sum8(const float (&v)[kL], int lane) {
+  const bool u4 = lane & 4, u2 = lane & 2, u1 = lane & 1;
+  float a[4], c[2];
 #pragma unroll
-  for (int l = 0; l < kL; ++l) s = fmaf(a[l], b[l], s);
-  return s;
+  for (int k = 0; k < 4; ++k)
+    a[k] = (u4 ? v[k + 4] : v[k]) +
+           __shfl_xor_sync(~0u, u4 ? v[k] : v[k + 4], 4);
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    c[k] = (u2 ? a[k + 2] : a[k]) +
+           __shfl_xor_sync(~0u, u2 ? a[k] : a[k + 2], 2);
+  float s = (u1 ? c[1] : c[0]) + __shfl_xor_sync(~0u, u1 ? c[0] : c[1], 1);
+  s += __shfl_xor_sync(~0u, s, 8);
+  return s + __shfl_xor_sync(~0u, s, 16);
 }
 
-// |W_j y|^2 for a row-major W_j [O][8]
+// W [J][O][8] as two float4 planes a row o: wt[(2 o + h) J + j] holds
+// W[j][o][4 h .. 4 h + 3], so that lanes reading consecutive j read
+// consecutive 16-byte words (W's own layout puts them 1 KB apart).
+__global__ void w_planes_kernel(const float4* __restrict__ w,
+                                float4* __restrict__ wt, int J, int O) {
+  const int n = 2 * J * O;
+  for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < n;
+       t += gridDim.x * blockDim.x)
+    wt[t] = __ldg(w + (size_t)(t % J) * 2 * O + t / J);
+}
+
+// row o of W_j, j a global output capsule
+__device__ __forceinline__ void ld_w(const float4* __restrict__ wt, int J,
+                                     int o, int j, float (&r)[kL]) {
+  const float4 lo = __ldg(wt + (size_t)2 * o * J + j);
+  const float4 hi = __ldg(wt + (size_t)(2 * o + 1) * J + j);
+  r[0] = lo.x; r[1] = lo.y; r[2] = lo.z; r[3] = lo.w;
+  r[4] = hi.x; r[5] = hi.y; r[6] = hi.z; r[7] = hi.w;
+}
+
+// Where a block's arrays lie, in floats. Shared memory, always: x [I][8] |
+// a [nj][8] in the forward passes, e [nj][8] in the reverse ones | dx
+// partial [I][8] | max [R][I] | 1/sum [R][I] | the couplings' row scale
+// [I] | exchange rows [2][2 I].
+// Then, in shared memory where it fits (`keep`), else in the block's part
+// of a scratch: the stashes of a and y [R][nj][8] | c [I][ldp] |
+// db [I][ldp], nj = njm = ceil(J / C) rows, ldp = njm rounded up to 32,
+// plus 16: the two lanes of a pair read rows 2k and 2k + 1 of c and db in
+// different banks.
+struct FactoredLayout {
+  int njm, ldp;
+  size_t xs, ae, dxs, mx, zinv, kk, xch, small;
+  size_t sa, sy, cb, db, big;
+};
+
+__host__ __device__ inline FactoredLayout factored_layout(int I, int J,
+                                                          int R, int C) {
+  FactoredLayout f;
+  f.njm = (J + C - 1) / C;
+  f.ldp = ((f.njm + 31) & ~31) + 16;
+  const size_t n8 = (size_t)kL * f.njm;
+  size_t o = 0;
+  f.xs = o; o += (size_t)I * kL;
+  f.ae = o; o += n8;
+  f.dxs = o; o += (size_t)I * kL;
+  f.mx = o; o += (size_t)R * I;
+  f.zinv = o; o += (size_t)R * I;
+  f.kk = o; o += (size_t)I;
+  f.xch = o; o += 4 * (size_t)I;
+  f.small = (o + 3) & ~(size_t)3;
+  o = 0;
+  f.sa = o; o += (size_t)R * n8;
+  f.sy = o; o += (size_t)R * n8;
+  f.cb = o; o += (size_t)I * f.ldp;
+  f.db = o; o += (size_t)I * f.ldp;
+  f.big = o;
+  return f;
+}
+
 template <int O>
-__device__ __forceinline__ float sq_norm(const float* wj, const float (&y)[kL]) {
-  float n2 = 0.f;
-  for (int o = 0; o < O; ++o) {
-    float wo[kL];
-    load8(wj + o * kL, wo);
-    const float so = dot8(wo, y);
-    n2 = fmaf(so, so, n2);
-  }
-  return n2;
-}
-
-__device__ __forceinline__ float squash_scale(float n2) {
-  return n2 / (1.f + n2) * rsqrtf(n2 + 1e-8f);
-}
-
-// squash scale g(n2) and its derivative dg/dn2 (capsule_pallas.py:196-201)
-__device__ __forceinline__ void squash_grad(float n2, float& g, float& gp) {
-  const float inv1 = 1.f / (1.f + n2);
-  const float rs = rsqrtf(n2 + 1e-8f);
-  g = n2 * inv1 * rs;
-  gp = inv1 * rs - n2 * inv1 * inv1 * rs - 0.5f * n2 * inv1 * rs * rs * rs;
-}
-
-// Block-wide reduction of one value per input capsule: each warp's lane 0
-// wrote red[warp * I + i]; thread i < I combines them into dst[i].
-__device__ __forceinline__ void combine_max(const float* red, float* dst,
-                                            int I, int tid) {
-  if (tid < I) {
-    float m = red[tid];
-    for (int k = 1; k < kWarps; ++k) m = fmaxf(m, red[k * I + tid]);
-    dst[tid] = m;
-  }
-}
-
-__device__ __forceinline__ void combine_sum(const float* red, float* dst,
-                                            int I, int tid, bool invert) {
-  if (tid < I) {
-    float z = 0.f;
-    for (int k = 0; k < kWarps; ++k) z += red[k * I + tid];
-    dst[tid] = invert ? 1.f / z : z;
-  }
-}
-
-// ---- (1) factored form ----------------------------------------------------
-
-// Shared memory: x [I][8] | a [J][8] | e [J][8] | t [J][8] | z [J][8] |
-// dx partials [kWarps][I][8] | reduction rows [kWarps][I] | max [R][I] |
-// 1/sum [R][I] | rho [I].
-__host__ __device__ inline size_t factored_smem_bytes(int I, int J, int R) {
-  return sizeof(float) *
-         ((size_t)I * kL + 4 * (size_t)J * kL + (size_t)kWarps * I * kL +
-          (size_t)kWarps * I + 2 * (size_t)R * I + (size_t)I);
-}
-
-// Per-sample scratch, in floats: a [R][J][8] | y [R][J][8] | dv [J][O] |
-// db [I][J]
-// (rounded up to whole float4, so that every sample's rows stay aligned)
-__host__ __device__ inline size_t factored_scratch_floats(int I, int J, int O,
-                                                          int R) {
-  return (2 * (size_t)R * J * kL + (size_t)J * O + (size_t)I * J + 3) &
-         ~(size_t)3;
-}
-
-template <int O>
-__global__ void __launch_bounds__(kThreads)
-routing_bwd_factored_kernel(const float* __restrict__ x,
-                            const float* __restrict__ w,
-                            const float* __restrict__ dout,
-                            float* __restrict__ dx, float* __restrict__ scratch,
-                            float* __restrict__ fp, float* __restrict__ fq,
-                            int I, int J, int R) {
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);
-  float* as = xs + (size_t)I * kL;
-  float* es = as + (size_t)J * kL;
-  float* ts = es + (size_t)J * kL;
-  float* zs = ts + (size_t)J * kL;
-  float* dxp = zs + (size_t)J * kL;
-  float* red = dxp + (size_t)kWarps * I * kL;
-  float* mx = red + (size_t)kWarps * I;
-  float* zinv = mx + (size_t)R * I;
-  float* rho = zinv + (size_t)R * I;
-
-  const int b = blockIdx.x;
+__global__ void __launch_bounds__(kRouteThreads)
+routing_bwd_factored_cluster_kernel(const float* __restrict__ x,
+                                    const float4* __restrict__ wt,
+                                    const float* __restrict__ dout,
+                                    float* __restrict__ dx,
+                                    float* __restrict__ scratch,
+                                    float* __restrict__ fp,
+                                    float* __restrict__ fq, int I, int J,
+                                    int R, int keep) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / C;
+  const int j0 = rank * J / C;
+  const int nj = (rank + 1) * J / C - j0;
+  const FactoredLayout f = factored_layout(I, J, R, C);
+  const int njm = f.njm, ldp = f.ldp;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int K = 2 * R - 1;  // dW factor pairs per sample
+  const int h = lane >> 4;  // per-capsule phases: which lane of the pair
+  const int K = 2 * R;      // dW factor pairs per sample
+  constexpr int kHalf = O / 2;
+  constexpr int kPairStride = kRouteThreads / 2;
+  // row loops: two iterations in flight, but one at O = 16, where ptxas
+  // spills with two
+  constexpr int kRowUnroll = O == 32 ? 2 : 1;
 
-  float* sa = scratch + (size_t)b * factored_scratch_floats(I, J, O, R);
-  float* sy = sa + (size_t)R * J * kL;
-  float* sdv = sy + (size_t)R * J * kL;
-  float* sdb = sdv + (size_t)J * O;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* xs = sm + f.xs;
+  float* acur = sm + f.ae;  // forward
+  float* es = acur;         // reverse
+  float* dxs = sm + f.dxs;
+  float* mx = sm + f.mx;
+  float* zinv = sm + f.zinv;
+  float* kk = sm + f.kk;
+  float* xch = sm + f.xch;
+  float* big = keep ? sm + f.small : scratch + (size_t)blockIdx.x * f.big;
+  float* sa = big + f.sa;
+  float* sy = big + f.sy;
+  float* cb = big + f.cb;
+  float* db = big + f.db;
 
   const float* xb = x + (size_t)b * I * kL;
-  for (int k = tid; k < I * kL; k += kThreads) xs[k] = xb[k];
-  for (int k = tid; k < J * kL; k += kThreads) as[k] = 0.f;
-  for (int k = tid; k < kWarps * I * kL; k += kThreads) dxp[k] = 0.f;
+  for (int k = tid; k < I * kL; k += kRouteThreads) {
+    xs[k] = xb[k];
+    dxs[k] = 0.f;
+  }
+  for (int k = tid; k < kL * njm; k += kRouteThreads) acur[k] = 0.f;
   __syncthreads();
 
-  // ---- forward recompute (K1's passes), keeping a_r, y_r, max_r, 1/Z_r
+  int xp = 0;  // exchanges so far: rows alternate between two buffers
+  // ---- forward recompute, stashing a_r, y_r, max_r, 1/Z_r
   for (int r = 0; r < R; ++r) {
-    for (int i = 0; i < I; ++i) {
+    float* xw = xch + (xp++ & 1) * 2 * I;
+    // logits x_i . a_j of the slice into c, each row's max over the slice,
+    // then exp(b - max) in place and its sum
+    for (int i = warp; i < I; i += kRouteWarps) {
       float xi[kL];
       load8(xs + i * kL, xi);
+      float* row = cb + (size_t)i * ldp;
       float m = -INFINITY;
-      for (int j = tid; j < J; j += kThreads) {
+#pragma unroll(kRowUnroll)
+      for (int j = lane; j < nj; j += 32) {
         float aj[kL];
-        load8(as + (size_t)j * kL, aj);
-        m = fmaxf(m, dot8(xi, aj));
+        ld_row(acur, njm, j, aj);
+        const float bij = dot8(xi, aj);
+        row[j] = bij;
+        m = fmaxf(m, bij);
       }
       m = warp_max(m);
-      if (lane == 0) red[warp * I + i] = m;
-    }
-    __syncthreads();
-    combine_max(red, mx + r * I, I, tid);
-    __syncthreads();
-    for (int i = 0; i < I; ++i) {
-      float xi[kL];
-      load8(xs + i * kL, xi);
-      const float mi = mx[r * I + i];
       float z = 0.f;
-      for (int j = tid; j < J; j += kThreads) {
-        float aj[kL];
-        load8(as + (size_t)j * kL, aj);
-        z += expf(dot8(xi, aj) - mi);
+#pragma unroll(kRowUnroll)
+      for (int j = lane; j < nj; j += 32) {
+        const float p = expf(row[j] - m);
+        row[j] = p;
+        z += p;
       }
       z = warp_sum(z);
-      if (lane == 0) red[warp * I + i] = z;
+      if (lane == 0) {
+        xw[i] = m;
+        xw[I + i] = z;
+      }
+    }
+    cluster.sync();
+    // the cluster's statistics, in rank order; c_ij = p_ij kk_i. Thread i
+    // combines row i, its C remote reads issued together.
+    for (int i = tid; i < I; i += kRouteThreads) {
+      float mq[kMaxCluster], zq[kMaxCluster];
+#pragma unroll
+      for (int q = 0; q < kMaxCluster; ++q) {
+        mq[q] = -INFINITY;
+        zq[q] = 0.f;
+        if (q < C) {
+          const float* rw = cluster.map_shared_rank(xw, q);
+          mq[q] = rw[i];
+          zq[q] = rw[I + i];
+        }
+      }
+      float m = -INFINITY, z = 0.f;
+#pragma unroll
+      for (int q = 0; q < kMaxCluster; ++q) m = fmaxf(m, mq[q]);
+#pragma unroll
+      for (int q = 0; q < kMaxCluster; ++q)
+        if (q < C) z = fmaf(zq[q], expf(mq[q] - m), z);
+      const float zi = 1.f / z;
+      mx[r * I + i] = m;
+      zinv[r * I + i] = zi;
+      kk[i] = expf(xw[i] - m) * zi;
     }
     __syncthreads();
-    combine_sum(red, zinv + r * I, I, tid, true);
-    __syncthreads();
-    for (int j = tid; j < J; j += kThreads) {
-      float aj[kL];
-      load8(as + (size_t)j * kL, aj);
-      store8(sa + ((size_t)r * J + j) * kL, aj);
+    // per output capsule, two lanes each: y_j = sum_i c_ij x_i (even and
+    // odd i), the stashes, then a_j += W_j^T v_j (each lane half of W_j)
+    for (int jb = warp * 16; jb < nj; jb += kPairStride) {
+      const bool valid = jb + (lane & 15) < nj;
+      const int j = min(jb + (lane & 15), nj - 1);
       float y[kL];
 #pragma unroll
       for (int l = 0; l < kL; ++l) y[l] = 0.f;
-      for (int i = 0; i < I; ++i) {
+#pragma unroll 4
+      for (int i = h; i < I; i += 2) {
         float xi[kL];
         load8(xs + i * kL, xi);
-        const float c = expf(dot8(xi, aj) - mx[r * I + i]) * zinv[r * I + i];
+        const float c = cb[(size_t)i * ldp + j] * kk[i];
 #pragma unroll
         for (int l = 0; l < kL; ++l) y[l] = fmaf(c, xi[l], y[l]);
       }
-      store8(sy + ((size_t)r * J + j) * kL, y);
-      if (r < R - 1) {
-        // a_j += W_j^T v_j; s_j is recomputed rather than kept, which
-        // keeps the thread's registers to a few rows of 8
-        const float* wj = w + (size_t)j * O * kL;
-        const float g = squash_scale(sq_norm<O>(wj, y));
-        for (int o = 0; o < O; ++o) {
-          float wo[kL];
-          load8(wj + o * kL, wo);
-          const float vo = g * dot8(wo, y);
 #pragma unroll
-          for (int l = 0; l < kL; ++l) aj[l] = fmaf(vo, wo[l], aj[l]);
-        }
-        store8(as + (size_t)j * kL, aj);
+      for (int l = 0; l < kL; ++l) y[l] += __shfl_xor_sync(~0u, y[l], 16);
+      float aj[kL];
+      ld_row(acur, njm, j, aj);
+      if (valid) {
+        st_half(sy + (size_t)r * kL * njm, njm, j, h, y);
+        st_half(sa + (size_t)r * kL * njm, njm, j, h, aj);
       }
+      if (r == R - 1) continue;
+      float n2 = 0.f, tv[kL];
+#pragma unroll
+      for (int l = 0; l < kL; ++l) tv[l] = 0.f;
+#pragma unroll 4
+      for (int q = 0; q < kHalf; ++q) {
+        float wo[kL];
+        ld_w(wt, J, h * kHalf + q, j0 + j, wo);
+        const float so = dot8(wo, y);
+        n2 = fmaf(so, so, n2);
+#pragma unroll
+        for (int l = 0; l < kL; ++l) tv[l] = fmaf(so, wo[l], tv[l]);
+      }
+      n2 += __shfl_xor_sync(~0u, n2, 16);
+      const float g = squash_scale(n2);
+#pragma unroll
+      for (int l = 0; l < kL; ++l) {
+        tv[l] += __shfl_xor_sync(~0u, tv[l], 16);
+        aj[l] = fmaf(g, tv[l], aj[l]);
+      }
+      if (valid) st_half(acur, njm, j, h, aj);
     }
     __syncthreads();
   }
 
   // ---- reverse
   for (int r = R - 1; r >= 0; --r) {
-    // (a) per output capsule: ds_j, e_j = W_j^T ds_j, a_r and t_j
-    for (int j = tid; j < J; j += kThreads) {
-      const float* wj = w + (size_t)j * O * kL;
-      float y[kL], aj[kL];
-      load8(sy + ((size_t)r * J + j) * kL, y);
-      load8(sa + ((size_t)r * J + j) * kL, aj);
-      store8(as + (size_t)j * kL, aj);
-      if (r > 0) {
-        float ap[kL];
-        load8(sa + ((size_t)(r - 1) * J + j) * kL, ap);
+    const float* sar = sa + (size_t)r * kL * njm;
+    // (a) per output capsule, two lanes each: z_j = sum_i db_ij x_i of the
+    //     pass after (db as it left pass r + 1), dv_j = W_j z_j (or the
+    //     output gradient), ds_j through the squash, e_j = W_j^T ds_j, and
+    //     this pass's dW factors
+    for (int jb = warp * 16; jb < nj; jb += kPairStride) {
+      const bool valid = jb + (lane & 15) < nj;
+      const int j = min(jb + (lane & 15), nj - 1);
+      const int jg = j0 + j;
+      float z[kL];
 #pragma unroll
-        for (int l = 0; l < kL; ++l) ap[l] = aj[l] - ap[l];
-        store8(ts + (size_t)j * kL, ap);
+      for (int l = 0; l < kL; ++l) z[l] = 0.f;
+      if (r < R - 1) {
+#pragma unroll 4
+        for (int i = h; i < I; i += 2) {
+          float xi[kL];
+          load8(xs + i * kL, xi);
+          const float d = db[(size_t)i * ldp + j];
+#pragma unroll
+          for (int l = 0; l < kL; ++l) z[l] = fmaf(d, xi[l], z[l]);
+        }
+#pragma unroll
+        for (int l = 0; l < kL; ++l) z[l] += __shfl_xor_sync(~0u, z[l], 16);
       }
-      const float* dvj = (r == R - 1) ? dout + ((size_t)b * J + j) * O
-                                      : sdv + (size_t)j * O;
+      float y[kL];
+      ld_row(sy + (size_t)r * kL * njm, njm, j, y);
+      const float* dvj = dout + ((size_t)b * J + jg) * O;
+      // this capsule's rows of the factors dv (pair 2 r) and s (2 r + 1)
+      float* f0 = fp ? fp + ((size_t)(b * K + 2 * r) * J + jg) * O : nullptr;
+      float av[kL], bv[kL];
       float n2 = 0.f, dots = 0.f;
-      for (int o = 0; o < O; ++o) {
-        float wo[kL];
-        load8(wj + o * kL, wo);
-        const float so = dot8(wo, y);
-        n2 = fmaf(so, so, n2);
-        dots = fmaf(dvj[o], so, dots);
+#pragma unroll
+      for (int l = 0; l < kL; ++l) av[l] = bv[l] = 0.f;
+      // rows o of W_j four at a time, the pair's lanes taking alternate
+      // fours: each lane stores its four factors of a kind as one float4
+#pragma unroll 1
+      for (int o0 = 4 * h; o0 < O; o0 += 8) {
+        const float4 d = r == R - 1
+                             ? __ldg(reinterpret_cast<const float4*>(dvj + o0))
+                             : float4{};
+        float dq[4], so[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float wo[kL];
+          ld_w(wt, J, o0 + c, jg, wo);
+          so[c] = dot8(wo, y);
+          dq[c] = r < R - 1 ? dot8(wo, z)
+                  : c == 0  ? d.x
+                  : c == 1  ? d.y
+                  : c == 2  ? d.z
+                            : d.w;
+          n2 = fmaf(so[c], so[c], n2);
+          dots = fmaf(dq[c], so[c], dots);
+#pragma unroll
+          for (int l = 0; l < kL; ++l) {
+            av[l] = fmaf(dq[c], wo[l], av[l]);
+            bv[l] = fmaf(so[c], wo[l], bv[l]);
+          }
+        }
+        if (f0 && valid) {
+          *reinterpret_cast<float4*>(f0 + o0) =
+              make_float4(dq[0], dq[1], dq[2], dq[3]);
+          *reinterpret_cast<float4*>(f0 + (size_t)J * O + o0) =
+              make_float4(so[0], so[1], so[2], so[3]);
+        }
       }
+      n2 += __shfl_xor_sync(~0u, n2, 16);
+      dots += __shfl_xor_sync(~0u, dots, 16);
       float g, gp;
       squash_grad(n2, g, gp);
+      const float k2 = 2.f * dots * gp;
+      // ds_o = dv_o g + s_o k2, so e = g sum_o dv_o W_o + k2 sum_o s_o W_o
       float e[kL];
 #pragma unroll
-      for (int l = 0; l < kL; ++l) e[l] = 0.f;
-      float* pj = fp ? fp + (((size_t)b * K + 2 * r) * J + j) * O : nullptr;
-      for (int o = 0; o < O; ++o) {
-        float wo[kL];
-        load8(wj + o * kL, wo);
-        const float ds = dvj[o] * g + dot8(wo, y) * (2.f * dots * gp);
-        if (pj) pj[o] = ds;
-#pragma unroll
-        for (int l = 0; l < kL; ++l) e[l] = fmaf(ds, wo[l], e[l]);
+      for (int l = 0; l < kL; ++l) {
+        e[l] = fmaf(g, av[l], k2 * bv[l]);
+        e[l] += __shfl_xor_sync(~0u, e[l], 16);
       }
-      store8(es + (size_t)j * kL, e);
-      if (fq) store8(fq + (((size_t)b * K + 2 * r) * J + j) * kL, y);
-      float zero[kL] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      store8(zs + (size_t)j * kL, zero);
+      if (!valid) continue;
+      st_half(es, njm, j, h, e);
+      if (fq) {
+        // dW_j += ds (x) y + v (x) z_next = dv (x) g y + s (x) (k2 y + g z)
+        const float4 yh = half4(y, h), zh = half4(z, h);
+        float4* q0 = reinterpret_cast<float4*>(
+            fq + ((size_t)(b * K + 2 * r) * J + jg) * kL) + h;
+        q0[0] = make_float4(g * yh.x, g * yh.y, g * yh.z, g * yh.w);
+        q0[2 * J] = make_float4(fmaf(k2, yh.x, g * zh.x),
+                                fmaf(k2, yh.y, g * zh.y),
+                                fmaf(k2, yh.z, g * zh.z),
+                                fmaf(k2, yh.w, g * zh.w));
+      }
     }
     __syncthreads();
-
-    // (b) rho_i = sum_j c_ij dc_ij
-    for (int i = 0; i < I; ++i) {
+    // (b) the couplings of pass r, this slice's part of dx_i = sum_j c_ij
+    //     e_j + ..., and, but in pass 0 (whose logits are constant), c_ij,
+    //     c_ij dc_ij + db_ij of the pass after, and this slice's part of
+    //     rho_i = sum_j c_ij dc_ij, dc_ij = x_i . e_j
+    float* xw = xch + (xp & 1) * 2 * I;
+    for (int i = warp; i < I; i += kRouteWarps) {
       float xi[kL];
       load8(xs + i * kL, xi);
       const float mi = mx[r * I + i], zi = zinv[r * I + i];
-      float acc = 0.f;
-      for (int j = tid; j < J; j += kThreads) {
-        float aj[kL], ej[kL];
-        load8(as + (size_t)j * kL, aj);
-        load8(es + (size_t)j * kL, ej);
-        acc = fmaf(expf(dot8(xi, aj) - mi) * zi, dot8(xi, ej), acc);
-      }
-      acc = warp_sum(acc);
-      if (lane == 0) red[warp * I + i] = acc;
-    }
-    __syncthreads();
-    combine_sum(red, rho, I, tid, false);
-    __syncthreads();
-
-    // (c) db_ij, the dx terms, z_j = sum_i db_ij x_i
-    for (int i = 0; i < I; ++i) {
-      float xi[kL];
-      load8(xs + i * kL, xi);
-      const float mi = mx[r * I + i], zi = zinv[r * I + i], ri = rho[i];
-      float part[kL];
+      float* row = cb + (size_t)i * ldp;
+      float* drow = db + (size_t)i * ldp;
+      float part = 0.f, de[kL];
 #pragma unroll
-      for (int l = 0; l < kL; ++l) part[l] = 0.f;
-      for (int j = tid; j < J; j += kThreads) {
+      for (int l = 0; l < kL; ++l) de[l] = 0.f;
+#pragma unroll(kRowUnroll)
+      for (int j = lane; j < nj; j += 32) {
         float aj[kL], ej[kL];
-        load8(as + (size_t)j * kL, aj);
-        load8(es + (size_t)j * kL, ej);
+        ld_row(sar, njm, j, aj);
+        ld_row(es, njm, j, ej);
         const float c = expf(dot8(xi, aj) - mi) * zi;
-        float* dbp = sdb + (size_t)i * J + j;
-        const float db = c * (dot8(xi, ej) - ri) + (r < R - 1 ? *dbp : 0.f);
 #pragma unroll
-        for (int l = 0; l < kL; ++l) part[l] = fmaf(c, ej[l], part[l]);
+        for (int l = 0; l < kL; ++l) de[l] = fmaf(c, ej[l], de[l]);
         if (r > 0) {
-          *dbp = db;
-          float tj[kL], zj[kL];
-          load8(ts + (size_t)j * kL, tj);
-          load8(zs + (size_t)j * kL, zj);
-#pragma unroll
-          for (int l = 0; l < kL; ++l) {
-            part[l] = fmaf(db, tj[l], part[l]);
-            zj[l] = fmaf(db, xi[l], zj[l]);
-          }
-          store8(zs + (size_t)j * kL, zj);
+          const float cdc = c * dot8(xi, ej);
+          part += cdc;
+          row[j] = c;
+          drow[j] = cdc + (r < R - 1 ? drow[j] : 0.f);
         }
       }
-#pragma unroll
-      for (int l = 0; l < kL; ++l) part[l] = warp_sum(part[l]);
-      if (lane == 0) {
-        float* d = dxp + ((size_t)warp * I + i) * kL;
-#pragma unroll
-        for (int l = 0; l < kL; ++l) d[l] += part[l];
+      const float d = warp_sum8(de, lane);
+      if (lane < kL) dxs[i * kL + lane] += d;
+      if (r > 0) {
+        part = warp_sum(part);
+        if (lane == 0) xw[i] = part;
       }
+    }
+    if (r == 0) break;
+    ++xp;
+    cluster.sync();
+    // (c) rho summed over the cluster in rank order; db_ij = c_ij dc_ij +
+    //     db_ij (next) - c_ij rho_i; this slice's part of sum_j db_ij t_j,
+    //     t_j = W_j^T v_j(prev) = a_r - a_(r-1)
+    for (int i = warp; i < I; i += kRouteWarps) {
+      const float pq = remote_row(cluster, xw, 0, i, lane, C);
+      float rho = 0.f;
+      for (int q = 0; q < C; ++q) rho += __shfl_sync(~0u, pq, q);
+      const float* row = cb + (size_t)i * ldp;
+      float* drow = db + (size_t)i * ldp;
+      float dt[kL];
+#pragma unroll
+      for (int l = 0; l < kL; ++l) dt[l] = 0.f;
+#pragma unroll(kRowUnroll)
+      for (int j = lane; j < nj; j += 32) {
+        const float d = fmaf(-row[j], rho, drow[j]);
+        drow[j] = d;
+        float a1[kL], a0[kL];
+        ld_row(sar, njm, j, a1);
+        ld_row(sar - (size_t)kL * njm, njm, j, a0);
+#pragma unroll
+        for (int l = 0; l < kL; ++l) dt[l] = fmaf(d, a1[l] - a0[l], dt[l]);
+      }
+      const float d = warp_sum8(dt, lane);
+      if (lane < kL) dxs[i * kL + lane] += d;
     }
     __syncthreads();
-
-    // (d) dv of the previous pass, and its dW factors (v_prev, z)
-    if (r > 0) {
-      for (int j = tid; j < J; j += kThreads) {
-        const float* wj = w + (size_t)j * O * kL;
-        float zj[kL], yp[kL];
-        load8(zs + (size_t)j * kL, zj);
-        load8(sy + ((size_t)(r - 1) * J + j) * kL, yp);
-        for (int o = 0; o < O; ++o) {
-          float wo[kL];
-          load8(wj + o * kL, wo);
-          sdv[(size_t)j * O + o] = dot8(wo, zj);
-        }
-        if (fp) {
-          const float g = squash_scale(sq_norm<O>(wj, yp));
-          float* pj = fp + (((size_t)b * K + 2 * r - 1) * J + j) * O;
-          for (int o = 0; o < O; ++o) {
-            float wo[kL];
-            load8(wj + o * kL, wo);
-            pj[o] = g * dot8(wo, yp);
-          }
-          store8(fq + (((size_t)b * K + 2 * r - 1) * J + j) * kL, zj);
-        }
-      }
-      __syncthreads();
-    }
   }
 
+  // dx_i = the slices' parts summed in rank order; rank q writes the input
+  // capsules [q I / C, (q + 1) I / C)
+  cluster.sync();
   if (dx) {
-    for (int k = tid; k < I * kL; k += kThreads) {
+    const int k1 = (rank + 1) * I / C * kL;
+    for (int k = rank * I / C * kL + tid; k < k1; k += kRouteThreads) {
       float s = 0.f;
-      for (int q = 0; q < kWarps; ++q) s += dxp[(size_t)q * I * kL + k];
+      for (int q = 0; q < C; ++q) s += cluster.map_shared_rank(dxs, q)[k];
       dx[(size_t)b * I * kL + k] = s;
     }
   }
+  // no block leaves while another may still read its shared memory
+  cluster.sync();
 }
 
-// dW[j, o, l] = sum_{b, k} fp[b, k, j, o] fq[b, k, j, l]: one block per
-// output capsule, one thread per (o, l).
+// dW[j, o, l] = sum_k fp[k, j, o] fq[k, j, l] over the B 2R factor pairs k:
+// one block per output capsule, one thread per (o, l); two partial sums
+// (even and odd k) keep more loads in flight.
 __global__ void dw_factored_kernel(const float* __restrict__ fp,
                                    const float* __restrict__ fq,
                                    float* __restrict__ dw, int BK, int J,
@@ -424,62 +548,49 @@ __global__ void dw_factored_kernel(const float* __restrict__ fp,
   const int j = blockIdx.x;
   const int o = threadIdx.x / kL;
   const int l = threadIdx.x % kL;
-  float acc = 0.f;
+  float acc[2] = {0.f, 0.f};
+#pragma unroll 4
   for (int k = 0; k < BK; ++k)
-    acc = fmaf(fp[((size_t)k * J + j) * O + o], fq[((size_t)k * J + j) * kL + l],
-               acc);
-  dw[((size_t)j * O + o) * kL + l] = acc;
+    acc[k & 1] = fmaf(__ldg(fp + ((size_t)k * J + j) * O + o),
+                      __ldg(fq + ((size_t)k * J + j) * kL + l), acc[k & 1]);
+  dw[((size_t)j * O + o) * kL + l] = acc[0] + acc[1];
 }
 
 template <int O>
 cudaError_t launch_factored(const float* x, const float* w, const float* dout,
-                            float* dx, float* dw, float* scratch, float* fp,
-                            float* fq, int B, int I, int J, int R,
-                            cudaStream_t stream) {
-  const size_t smem = factored_smem_bytes(I, J, R);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        routing_bwd_factored_kernel<O>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  routing_bwd_factored_kernel<O><<<B, kThreads, smem, stream>>>(
-      x, w, dout, dx, scratch, dw ? fp : nullptr, dw ? fq : nullptr, I, J, R);
+                            float* dx, float* dw, float* wt, float* scratch,
+                            float* fp, float* fq, int B, int I, int J, int R,
+                            int C, bool keep, cudaStream_t stream) {
+  const FactoredLayout f = factored_layout(I, J, R, C);
+  float4* wt4 = reinterpret_cast<float4*>(wt);
+  w_planes_kernel<<<(2 * J * O + 255) / 256, 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(w), wt4, J, O);
   cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = launch_cluster(routing_bwd_factored_cluster_kernel<O>, B, C,
+                     sizeof(float) * (f.small + (keep ? f.big : 0)), stream,
+                     x, (const float4*)wt4, dout, dx, scratch,
+                     dw ? fp : nullptr, dw ? fq : nullptr, I, J, R,
+                     (int)keep);
   if (e != cudaSuccess || !dw) return e;
-  dw_factored_kernel<<<J, O * kL, 0, stream>>>(fp, fq, dw, B * (2 * R - 1), J,
-                                              O);
+  dw_factored_kernel<<<J, O * kL, 0, stream>>>(
+      fp, fq, dw, B * 2 * R, J, O);
   return cudaGetLastError();
 }
 
 // ---- (2) materialised votes -----------------------------------------------
 
-// A cluster of C blocks reverses the routing of one sample; block `rank`
-// owns the output capsules [rank J / C, (rank + 1) J / C), at most
-// ceil(J / C) of them (nj below). Shared memory, in floats: the sample's
-// vote slice u [I][nj][O] (only where it fits, `keep`) | stashes of every
-// pass: c [R][I][nj] | db [R][I][nj] | s [R][nj][O] | ds [R][nj][O] |
-// v [R][nj][O] | logits, then dc [I][nj] | dv [nj][O] | exchange rows
-// [2][2 I].
+// Shared memory of one block of K2-D's routing, in floats: the sample's
+// vote slice u [I][njm][O] (only where it fits, `keep`) | stashes of every
+// pass: c [R][I][njm] | db [R][I][njm] | s [R][njm][O] | ds [R][njm][O] |
+// v [R][njm][O] | logits, then dc [I][njm] | dv [njm][O] | exchange rows
+// [2][2 I]; njm = ceil(J / C).
 __host__ __device__ inline size_t cluster_smem_floats(int I, int J, int O,
                                                       int R, int C,
                                                       bool keep) {
   const size_t nj = (size_t)(J + C - 1) / C;
   return (keep ? (size_t)I * nj * O : 0) + 2 * (size_t)R * I * nj +
          3 * (size_t)R * nj * O + (size_t)I * nj + nj * O + 4 * (size_t)I;
-}
-
-constexpr int kRouteThreads = 512;
-constexpr int kRouteWarps = kRouteThreads / 32;
-constexpr int kMaxCluster = 8;  // the portable cluster size
-
-// The exchange rows of cluster rank q for row i of this warp: lane q < C
-// reads rank q's value at xw[off + i]; every lane gets rank q's with a
-// shuffle, so that the warp combines them in rank order.
-template <typename Cluster>
-__device__ __forceinline__ float remote_row(Cluster& cluster, float* xw,
-                                            int off, int i, int lane, int C) {
-  return lane < C ? cluster.map_shared_rank(xw, lane)[off + i] : 0.f;
 }
 
 template <int O>
@@ -491,13 +602,7 @@ routing_bwd_cluster_kernel(const float* __restrict__ u,
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
-  const int rank = (int)cluster.block_rank();
-  const int b = blockIdx.x / C;
-  const int j0 = rank * J / C;
-  const int nj = (rank + 1) * J / C - j0;
   const int njm = (J + C - 1) / C;
-  const int JO = nj * O;
-  const int JO32 = (JO + 31) & ~31;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -513,98 +618,17 @@ routing_bwd_cluster_kernel(const float* __restrict__ u,
   float* dvs = bl + (size_t)I * njm;
   float* xch = dvs + (size_t)njm * O;
 
-  // u[b, i, j0 + jl, o] at ub[i * ldu + jl * O + o]
-  const float* ug = u + (size_t)b * I * J * O + (size_t)j0 * O;
-  const float* ub = ug;
-  size_t ldu = (size_t)J * O;
-  if (keep) {  // all of the slice's 16-byte copies in flight at once
-    const int row4 = JO / 4;
-    for (int q = tid; q < I * row4; q += kRouteThreads)
-      gemm_tf32x3::cp_async<16>(
-          us + 4 * q, ug + (size_t)(q / row4) * J * O + 4 * (q % row4), 16);
-    gemm_tf32x3::cp_async_commit();
-  }
-  // the first pass's logits are 0: each row's slice has max 0, sum nj
-  for (int p = tid; p < I * nj; p += kRouteThreads) bl[p] = 0.f;
-  for (int i = tid; i < I; i += kRouteThreads) {
-    xch[i] = 0.f;
-    xch[I + i] = (float)nj;
-  }
-  if (keep) {
-    gemm_tf32x3::cp_async_wait<0>();
-    ub = us;
-    ldu = JO;
-  }
-
-  // Rows i of [I][nj] go to warps, columns to lanes: each warp owns its
-  // rows through the softmax and its pullback, and combines their
-  // cluster-wide statistics itself. Rows of [nj][O] (s, v, ds, dv) go to
-  // threads.
+  const VoteSlice sl = vote_slice<O>(C, (int)cluster.block_rank(), u, us, bl,
+                                     xch, I, J, keep != 0);
+  const int b = sl.b, j0 = sl.j0, nj = sl.nj;
+  const float* ub = sl.u;
+  const size_t ldu = sl.ldu;
+  const int JO = nj * O;
+  const int JO32 = (JO + 31) & ~31;
   int xp = 0;  // exchanges so far: rows alternate between two buffers
   // ---- forward recompute, stashing c, s and v of every pass
-  for (int r = 0; r < R; ++r) {
-    float* cs = cst + (size_t)r * I * njm;
-    float* xw = xch + (xp++ & 1) * 2 * I;
-    cluster.sync();  // every slice's (max, sum of exp) is in place
-    for (int i = warp; i < I; i += kRouteWarps) {
-      const float mq = remote_row(cluster, xw, 0, i, lane, C);
-      const float zq = remote_row(cluster, xw, I, i, lane, C);
-      float m = -INFINITY;
-      for (int q = 0; q < C; ++q) m = fmaxf(m, __shfl_sync(~0u, mq, q));
-      float z = 0.f;
-      for (int q = 0; q < C; ++q)
-        z = fmaf(__shfl_sync(~0u, zq, q), expf(__shfl_sync(~0u, mq, q) - m),
-                 z);
-      const float zi = 1.f / z;
-      for (int j = lane; j < nj; j += 32)
-        cs[i * nj + j] = expf(bl[i * nj + j] - m) * zi;
-    }
-    __syncthreads();
-    float* ss = sst + (size_t)r * njm * O;
-    float* vs = vst + (size_t)r * njm * O;
-    for (int t = tid; t < JO32; t += kRouteThreads) {
-      const bool valid = t < JO;
-      const int jl = t / O;
-      float s = 0.f;
-      if (valid)
-        for (int i = 0; i < I; ++i)
-          s = fmaf(cs[i * nj + jl], ub[i * ldu + t], s);
-      float n2 = s * s;
-#pragma unroll
-      for (int off = O / 2; off > 0; off >>= 1)
-        n2 += __shfl_xor_sync(0xffffffffu, n2, off);
-      if (valid) {
-        ss[t] = s;
-        vs[t] = s * squash_scale(n2);
-      }
-    }
-    __syncthreads();
-    if (r == R - 1) break;
-    // agreement update, then this slice's statistics of the new logits
-    float* xn = xch + (xp & 1) * 2 * I;
-    for (int i = warp; i < I; i += kRouteWarps) {
-      float m = -INFINITY;
-      for (int j = lane; j < nj; j += 32) {
-        const float* up = ub + i * ldu + (size_t)j * O;
-        float acc = 0.f;
-#pragma unroll
-        for (int q = 0; q < O; ++q) {
-          const int o = (q + j) & (O - 1);  // rotated: no bank conflicts
-          acc = fmaf(up[o], vs[j * O + o], acc);
-        }
-        bl[i * nj + j] += acc;
-        m = fmaxf(m, bl[i * nj + j]);
-      }
-      m = warp_max(m);
-      float z = 0.f;
-      for (int j = lane; j < nj; j += 32) z += expf(bl[i * nj + j] - m);
-      z = warp_sum(z);
-      if (lane == 0) {
-        xn[i] = m;
-        xn[I + i] = z;
-      }
-    }
-  }
+  route_forward<O, true>(cluster, sl, bl, cst, sst, vst, xch, xp, nullptr, I,
+                         C, R);
 
   for (int t = tid; t < JO; t += kRouteThreads)
     dvs[t] = dout[((size_t)b * J + j0) * O + t];
@@ -701,74 +725,105 @@ routing_bwd_cluster_kernel(const float* __restrict__ u,
 }
 
 template <int O>
-cudaError_t launch_cluster(const float* u, const float* dout, float* du,
-                           int B, int I, int J, int R, int C, int keep,
-                           cudaStream_t stream) {
-  const size_t smem = sizeof(float) * cluster_smem_floats(I, J, O, R, C, keep);
-  cudaError_t e = cudaFuncSetAttribute(
-      routing_bwd_cluster_kernel<O>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * C);
-  cfg.blockDim = dim3(kRouteThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, routing_bwd_cluster_kernel<O>, u, dout, du, I,
-                         J, R, keep);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+cudaError_t launch_votes(const float* u, const float* dout, float* du, int B,
+                         int I, int J, int R, int C, bool keep,
+                         cudaStream_t stream) {
+  return launch_cluster(routing_bwd_cluster_kernel<O>, B, C,
+                        sizeof(float) *
+                            cluster_smem_floats(I, J, O, R, C, keep),
+                        stream, u, dout, du, I, J, R, (int)keep);
 }
 
 }  // namespace
 
 extern "C" {
 
-size_t capsule_routing_bwd_smem_bytes(int I, int J, int R) {
-  return factored_smem_bytes(I, J, R);
+size_t capsule_routing_bwd_smem_bytes(int I, int J, int R, int cluster,
+                                      int keep) {
+  const FactoredLayout f = factored_layout(I, J, R, cluster);
+  return sizeof(float) * (f.small + (keep ? f.big : 0));
 }
 
-size_t capsule_routing_bwd_scratch_floats(int I, int J, int O, int R) {
-  return factored_scratch_floats(I, J, O, R);
+// How many clusters of `cluster` blocks of the factored backward the card
+// can hold at once (cudaOccupancyMaxActiveClusters; 0 where it cannot say):
+// the plan keeps every sample's cluster in one wave.
+int capsule_routing_bwd_max_clusters(int I, int J, int O, int R, int cluster,
+                                     int keep, int device) {
+  if (begin_call(device) != cudaSuccess) return 0;
+  const FactoredLayout f = factored_layout(I, J, R, cluster);
+  const size_t smem = sizeof(float) * (f.small + (keep ? f.big : 0));
+  cudaError_t e = cudaErrorInvalidValue;
+  int n = 0;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(kRouteThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+#define MAX_CLUSTERS(OL)                                                     \
+  if (O == OL &&                                                             \
+      cudaFuncSetAttribute(routing_bwd_factored_cluster_kernel<OL>,          \
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,      \
+                           (int)smem) == cudaSuccess)                        \
+    e = cudaOccupancyMaxActiveClusters(                                      \
+        &n, routing_bwd_factored_cluster_kernel<OL>, &cfg);
+  MAX_CLUSTERS(16)
+  MAX_CLUSTERS(32)
+#undef MAX_CLUSTERS
+  cudaGetLastError();
+  return e == cudaSuccess ? n : 0;
+}
+
+// floats of scratch one block needs where its stashes, c and db do not
+// stay in shared memory
+size_t capsule_routing_bwd_scratch_floats(int I, int J, int R, int cluster) {
+  return factored_layout(I, J, R, cluster).big;
 }
 
 // Factored backward, in_length 8. x [B, I, 8], w [J, O, 8], dout [B, J, O];
 // dx [B, I, 8] or null; dw [J, O, 8] or null (then fp and fq may be null);
-// scratch [B * capsule_routing_bwd_scratch_floats]; fp [B, 2R-1, J, O] and
-// fq [B, 2R-1, J, 8] hold the dW factors. All float32, contiguous, 16-byte
-// aligned, on `device`. Returns the CUDA error code (0 = success).
+// wt [J O 8] a scratch for W's planes; the routing on clusters of `cluster`
+// blocks (1..8, at most J) per sample, each block's stashes, couplings and
+// logit gradient in shared memory where `keep` is set, else in scratch
+// [B * cluster * capsule_routing_bwd_scratch_floats]; fp [B, 2R, J, O] and
+// fq [B, 2R, J, 8] hold the dW factors (ops/capsule_cuda.py::
+// factored_bwd_plan chooses the cluster and keep). All float32, contiguous,
+// 16-byte aligned, on `device`. Returns the CUDA error code (0 = success);
+// a cluster launch that the card refuses returns its error, and nothing
+// falls back to another form.
 int capsule_routing_bwd(const void* x, const void* w, const void* dout,
-                        void* dx, void* dw, void* scratch, void* fp, void* fq,
-                        int B, int I, int J, int O, int iters, int device,
-                        void* stream) {
-  if (B <= 0 || I <= 0 || I > kThreads || J <= 0 || iters <= 0)
+                        void* dx, void* dw, void* wt, void* scratch, void* fp,
+                        void* fq, int B, int I, int J, int O, int iters,
+                        int cluster, int keep, int device, void* stream) {
+  if (B <= 0 || I <= 0 || J <= 0 || iters <= 0 || cluster < 1 ||
+      cluster > kMaxCluster || cluster > J || !wt || (!keep && !scratch) ||
+      (dw && (!fp || !fq)))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = begin_call(device);
   if (e != cudaSuccess) return (int)e;
   const float* xf = static_cast<const float*>(x);
   const float* wf = static_cast<const float*>(w);
   const float* df = static_cast<const float*>(dout);
   float* dxf = static_cast<float*>(dx);
   float* dwf = static_cast<float*>(dw);
+  float* tf = static_cast<float*>(wt);
   float* sf = static_cast<float*>(scratch);
   float* pf = static_cast<float*>(fp);
   float* qf = static_cast<float*>(fq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (O) {
     case 16:
-      e = launch_factored<16>(xf, wf, df, dxf, dwf, sf, pf, qf, B, I, J, iters,
-                              st);
+      e = launch_factored<16>(xf, wf, df, dxf, dwf, tf, sf, pf, qf, B, I, J,
+                              iters, cluster, keep != 0, st);
       break;
     case 32:
-      e = launch_factored<32>(xf, wf, df, dxf, dwf, sf, pf, qf, B, I, J, iters,
-                              st);
+      e = launch_factored<32>(xf, wf, df, dxf, dwf, tf, sf, pf, qf, B, I, J,
+                              iters, cluster, keep != 0, st);
       break;
     default: return (int)cudaErrorInvalidValue;
   }
@@ -801,7 +856,7 @@ int capsule_routing_votes_bwd(const void* x, const void* w, const void* dout,
       cluster > kMaxCluster || cluster > J || dx_splits < 1 ||
       (dx && dx_splits > 1 && !partial))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = begin_call(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
@@ -816,12 +871,12 @@ int capsule_routing_votes_bwd(const void* x, const void* w, const void* dout,
   if (e != cudaSuccess) return (int)e;
   switch (O) {
     case 16:
-      e = launch_cluster<16>(u, static_cast<const float*>(dout), du, B, I, J,
-                             iters, cluster, keep_votes != 0, st);
+      e = launch_votes<16>(u, static_cast<const float*>(dout), du, B, I, J,
+                           iters, cluster, keep_votes != 0, st);
       break;
     case 32:
-      e = launch_cluster<32>(u, static_cast<const float*>(dout), du, B, I, J,
-                             iters, cluster, keep_votes != 0, st);
+      e = launch_votes<32>(u, static_cast<const float*>(dout), du, B, I, J,
+                           iters, cluster, keep_votes != 0, st);
       break;
     default: return (int)cudaErrorInvalidValue;
   }

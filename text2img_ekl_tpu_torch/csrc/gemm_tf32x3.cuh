@@ -1,12 +1,13 @@
 // A float32-faithful matrix product on Hopper's tensor cores (3xTF32), for
-// the three products of K2-D, the capsule-routing backward at the
-// discriminator class head (capsule_routing_bwd.cu, materialised votes).
+// the capsule routing at the discriminator class head (materialised votes):
+// the vote product of K1-D (capsule_routing.cu) and the three products of
+// K2-D (capsule_routing_bwd.cu).
 //
 //   C[m, n] = sum_k A(m, k) B(k, n)
 //   A(m, k) = A[m * lda + k] (K-major) or A[k * lda + m] (M-major)
 //   B(k, n) = B[n * ldb + k] (K-major) or B[k * ldb + n] (N-major)
-//   C row-major with leading dimension ldc; the layouts of K2-D's three
-//   products: K- and K-major, K- and N-major, M- and N-major.
+//   C row-major with leading dimension ldc; the layouts of the products:
+//   K- and K-major (u), K- and N-major (K2-D's dx), M- and N-major (its dW).
 //
 // Each float32 operand is split into a tf32 high part and a tf32 low part,
 // hi = rna(a), lo = rna(a - hi) (round to nearest, ties away from zero, as

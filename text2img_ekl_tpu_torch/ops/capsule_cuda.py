@@ -7,16 +7,20 @@ package wraps in a ``jax.custom_vjp``. The sources say what bounds each
 kernel on Hopper and what the design does about it:
 
 - in_length 8 (the generator head): the factored forward
-  (``csrc/capsule_routing.cu``, ``capsule_routing_fwd``) and backward
-  (``csrc/capsule_routing_bwd.cu``, ``capsule_routing_bwd``), in which the
-  6.3 MB-per-sample vote tensor never exists;
+  (``csrc/capsule_routing.cu``, ``capsule_routing_fwd``, K1-G) and backward
+  (``csrc/capsule_routing_bwd.cu``, ``capsule_routing_bwd``, K2-G), in which
+  the 6.3 MB-per-sample vote tensor never exists. K2-G routes each sample on
+  a cluster of blocks that split the output capsules
+  (``factored_bwd_plan``); ``factored_bwd_reference`` is its algorithm,
+  slices and rank-order sums included, in plain PyTorch;
 - any other in_length (the discriminator class head, 512): the vote tensor
-  is materialised, then routed (``capsule_routing_votes_fwd``, a tiled
-  float32 product and one block per sample) or reversed
-  (``capsule_routing_votes_bwd``, K2-D: float32-faithful 3xTF32 products on
-  the tensor cores and a cluster of blocks per sample, as
-  ``votes_bwd_plan`` chooses). ``votes_bwd_reference`` is K2-D's algorithm
-  in plain PyTorch, and ``tf32x3_matmul_reference`` emulates its products.
+  is materialised by a float32-faithful 3xTF32 product on the tensor cores
+  (``csrc/gemm_tf32x3.cuh``), then routed (``capsule_routing_votes_fwd``,
+  K1-D) or reversed (``capsule_routing_votes_bwd``, K2-D, which adds two
+  more products) on a cluster of blocks per sample, as ``votes_fwd_plan``
+  and ``votes_bwd_plan`` choose. ``votes_fwd_reference`` and
+  ``votes_bwd_reference`` are their algorithms in plain PyTorch, and
+  ``tf32x3_matmul_reference`` emulates their products.
 
 Both forms are kernels; the in_length picks the form. ``capsule_routing``
 runs the plain routing (``capsule.capsule_linear``) for tensors on the
@@ -30,27 +34,31 @@ the backward recomputes the routing.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
-from .capsule import capsule_linear
+from .capsule import capsule_linear, dynamic_routing
 
 FACTORED_IN_LENGTH = 8    # the factored kernels' capsule rows are two float4
 OUT_LENGTHS = (16, 32)    # instantiated templates (csrc/*.cu)
 MAX_IN_CAPSULES = 512     # factored form: one thread per input capsule in
                           # the reductions
 MAX_SMEM_BYTES = 232448   # dynamic shared memory one block may use on sm_90
-# K2-D (csrc/capsule_routing_bwd.cu, csrc/gemm_tf32x3.cuh): the cluster
-# sizes its plan picks from (8 is the portable maximum), and the products'
-# block tile (rows, columns, K depth)
+# The cluster sizes the routing plans pick from (8 is the portable maximum),
+# and the 3xTF32 products' block tile (rows, columns, K depth;
+# csrc/gemm_tf32x3.cuh)
 CLUSTER_SIZES = (1, 2, 4, 8)
+# K2-G's blocks hold one per SM, and a cluster's blocks must share a GPC of
+# the card: clusters of 3 pack where those of 4 leave SMs over
+FACTORED_CLUSTER_SIZES = (1, 2, 3, 4, 8)
 GEMM_BM, GEMM_BN, GEMM_BK = 128, 104, 32
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _fns = None
 _sms = {}
+_clusters = {}
 
 
 def _kernels():
@@ -70,14 +78,16 @@ def _kernels():
             fwd=fn(fwd_lib, 'capsule_routing_fwd', [_P] * 3 + [_I] * 6 + [_P]),
             fwd_smem=fn(fwd_lib, 'capsule_routing_smem_bytes', [_I] * 2, size),
             fwd_votes=fn(fwd_lib, 'capsule_routing_votes_fwd',
-                         [_P] * 4 + [_I] * 7 + [_P]),
+                         [_P] * 4 + [_I] * 9 + [_P]),
             fwd_votes_smem=fn(fwd_lib, 'capsule_routing_votes_smem_bytes',
-                              [_I] * 3, size),
-            bwd=fn(bwd_lib, 'capsule_routing_bwd', [_P] * 8 + [_I] * 6 + [_P]),
-            bwd_smem=fn(bwd_lib, 'capsule_routing_bwd_smem_bytes', [_I] * 3,
+                              [_I] * 5, size),
+            bwd=fn(bwd_lib, 'capsule_routing_bwd', [_P] * 9 + [_I] * 8 + [_P]),
+            bwd_smem=fn(bwd_lib, 'capsule_routing_bwd_smem_bytes', [_I] * 5,
                         size),
             bwd_scratch=fn(bwd_lib, 'capsule_routing_bwd_scratch_floats',
                            [_I] * 4, size),
+            bwd_clusters=fn(bwd_lib, 'capsule_routing_bwd_max_clusters',
+                            [_I] * 7),
             bwd_votes=fn(bwd_lib, 'capsule_routing_votes_bwd',
                          [_P] * 8 + [_I] * 11 + [_P]),
             bwd_votes_smem=fn(bwd_lib, 'capsule_routing_votes_bwd_smem_bytes',
@@ -171,25 +181,93 @@ def routing_fwd_factored(x: torch.Tensor, weight: torch.Tensor,
     return out
 
 
+class VotesFwdPlan(NamedTuple):
+    """How K1-D runs one call: the vote product, then the routing on
+    ``cluster`` blocks per sample (``blocks`` in all), rank r owning the
+    output capsules ``slices[r]`` = [j0, j1), with ``smem_bytes`` of shared
+    memory per block, which holds the block's vote slice where
+    ``votes_in_smem``; the scratch u of ``votes_numel`` floats."""
+    cluster: int
+    slices: Tuple[Tuple[int, int], ...]
+    blocks: int
+    smem_bytes: int
+    votes_in_smem: bool
+    votes_numel: int
+
+
+def _cluster_size(B: int, J: int, sms: int, cluster: Optional[int],
+                  who: str) -> int:
+    """The largest of ``CLUSTER_SIZES`` whose B x cluster blocks run in one
+    wave of one block per SM, or ``cluster`` where given; never more than
+    J, so that no slice is empty."""
+    if cluster is None:
+        fits = [c for c in CLUSTER_SIZES if B * c <= sms]
+        cluster = max(fits) if fits else 1
+    elif cluster not in CLUSTER_SIZES:
+        raise ValueError('%s: cluster %d not in %s'
+                         % (who, cluster, CLUSTER_SIZES))
+    return min(cluster, J)
+
+
+def _slices(J: int, cluster: int) -> Tuple[Tuple[int, int], ...]:
+    """J split as evenly as integers allow, rank r from r J / cluster."""
+    return tuple((r * J // cluster, (r + 1) * J // cluster)
+                 for r in range(cluster))
+
+
+def votes_fwd_smem_bytes(I: int, J: int, O: int, cluster: int,
+                         votes_in_smem: bool) -> int:
+    """Shared memory per block of K1-D's routing
+    (``csrc/capsule_routing.cu::votes_fwd_smem_floats``): the vote slice
+    [I][nj][O] where kept, the couplings and the logits [I][nj], the
+    outputs [nj][O] and two exchange rows of 2 I floats,
+    nj = ceil(J / cluster)."""
+    nj = -(-J // cluster)
+    return 4 * ((I * nj * O if votes_in_smem else 0) + 2 * I * nj + nj * O +
+                4 * I)
+
+
+def votes_fwd_plan(B: int, I: int, L: int, J: int, O: int, sms: int = 132,
+                   cluster: Optional[int] = None) -> VotesFwdPlan:
+    """K1-D's launch plan for x [B, I, L], weight [J, O, L] on a card of
+    ``sms`` SMs: the cluster as ``votes_bwd_plan`` chooses it (4 at the
+    flagship's B = 32: 128 blocks), the vote slice in shared memory where
+    it fits; raises ValueError where even the rest does not."""
+    cluster = _cluster_size(B, J, sms, cluster, 'votes_fwd_plan')
+    keep = votes_fwd_smem_bytes(I, J, O, cluster, True) <= MAX_SMEM_BYTES
+    smem = votes_fwd_smem_bytes(I, J, O, cluster, keep)
+    _check_smem(smem, 'routing %d x %d votes at a cluster of %d'
+                % (I, J, cluster))
+    return VotesFwdPlan(cluster, _slices(J, cluster), B * cluster, smem, keep,
+                        B * I * J * O)
+
+
 def routing_fwd_votes(x: torch.Tensor, weight: torch.Tensor,
-                      num_iterations: int) -> torch.Tensor:
-    """K1, materialised votes: x [B, in, L], weight [out, out_length, L] ->
-    [B, out, out_length], on the card."""
+                      num_iterations: int,
+                      plan: Optional[VotesFwdPlan] = None) -> torch.Tensor:
+    """K1-D, materialised votes: x [B, in, L], weight [out, out_length, L]
+    -> [B, out, out_length], on the card, run as ``plan`` says (default:
+    ``votes_fwd_plan`` for this card)."""
     bsz, in_caps, in_len, out_caps, out_len = _shapes(x, weight,
                                                       num_iterations)
     out = torch.empty((bsz, out_caps, out_len), device=x.device,
                       dtype=torch.float32)
     if bsz == 0:
         return out
+    if plan is None:
+        plan = votes_fwd_plan(bsz, in_caps, in_len, out_caps, out_len,
+                              _sm_count(x.device))
+    if plan.votes_numel != bsz * in_caps * out_caps * out_len:
+        raise ValueError('capsule_routing: %s does not fit x %s, weight %s'
+                         % (plan, tuple(x.shape), tuple(weight.shape)))
     k = _kernels()
-    _check_smem(k['fwd_votes_smem'](in_caps, out_caps, out_len),
-                'routing %d x %d votes' % (in_caps, out_caps))
-    votes = torch.empty((bsz, in_caps, out_caps, out_len), device=x.device,
+    votes = torch.empty(plan.votes_numel, device=x.device,
                         dtype=torch.float32)
     _check_launch(k['fwd_votes'](
         x.data_ptr(), weight.data_ptr(), votes.data_ptr(), out.data_ptr(),
-        bsz, in_caps, in_len, out_caps, out_len, num_iterations,
-        x.device.index, _stream(x)), 'capsule_routing_votes_fwd')
+        bsz, in_caps, in_len, out_caps, out_len, num_iterations, plan.cluster,
+        int(plan.votes_in_smem), x.device.index, _stream(x)),
+        'capsule_routing_votes_fwd')
     routing_fwd_votes.launches += 1
     return out
 
@@ -200,11 +278,107 @@ def _grad_outputs(x, weight, need_dx, need_dw):
     return dx, dw
 
 
+class FactoredBwdPlan(NamedTuple):
+    """How K2-G runs one call: the routing reversal on ``cluster`` blocks
+    per sample (``blocks`` in all), rank r owning the output capsules
+    ``slices[r]`` = [j0, j1), with ``smem_bytes`` of shared memory per
+    block; its stashes, couplings and logit gradient stay in shared memory
+    where ``in_smem``, else in a scratch of ``scratch_numel`` floats."""
+    cluster: int
+    slices: Tuple[Tuple[int, int], ...]
+    blocks: int
+    smem_bytes: int
+    in_smem: bool
+    scratch_numel: int
+
+
+def _factored_floats(I: int, J: int, R: int, cluster: int
+                     ) -> Tuple[int, int]:
+    """(floats always in shared memory, floats in shared memory or the
+    scratch) per block of K2-G (``csrc/capsule_routing_bwd.cu::
+    factored_layout``): x and the dx partial [I][8], a (forward) or e
+    (reverse) [nj][8], the statistics [R][I] twice, a row scale [I] and two
+    exchange rows of 2 I floats, rounded up to whole float4; the stashes of
+    a and y [R][nj][8], c and db [I][ldp]; nj = ceil(J / cluster), ldp = nj
+    rounded up to 32, plus 16."""
+    nj = -(-J // cluster)
+    ldp = -(-nj // 32) * 32 + 16
+    small = 2 * I * FACTORED_IN_LENGTH + FACTORED_IN_LENGTH * nj + \
+        2 * R * I + 5 * I
+    return -(-small // 4) * 4, 2 * R * FACTORED_IN_LENGTH * nj + 2 * I * ldp
+
+
+def factored_bwd_smem_bytes(I: int, J: int, R: int, cluster: int,
+                            in_smem: bool) -> int:
+    """Shared memory per block of K2-G."""
+    small, big = _factored_floats(I, J, R, cluster)
+    return 4 * (small + (big if in_smem else 0))
+
+
+def _factored_plan_at(B, I, J, R, cluster) -> FactoredBwdPlan:
+    cluster = min(cluster, J)
+    small, big = _factored_floats(I, J, R, cluster)
+    keep = 4 * (small + big) <= MAX_SMEM_BYTES
+    smem = factored_bwd_smem_bytes(I, J, R, cluster, keep)
+    _check_smem(smem, 'the backward of %d in / %d out capsules at a cluster '
+                'of %d' % (I, J, cluster))
+    return FactoredBwdPlan(cluster, _slices(J, cluster), B * cluster, smem,
+                           keep, 0 if keep else B * cluster * big)
+
+
+def factored_bwd_plan(B: int, I: int, J: int, R: int, sms: int = 132,
+                      cluster: Optional[int] = None,
+                      max_clusters: Optional[Callable[[int, bool], int]] = None
+                      ) -> FactoredBwdPlan:
+    """K2-G's launch plan for x [B, I, 8], weight [J, O, 8] and R routing
+    passes on a card of ``sms`` SMs: everything in shared memory where it
+    fits, else the stashes, couplings and logit gradient in a scratch;
+    raises ValueError where even the rest does not fit. The cluster is
+    ``cluster`` where given (one of ``FACTORED_CLUSTER_SIZES``, at most J),
+    else the largest of them whose B clusters all run at once: B x cluster
+    blocks of one per SM, and no more than the ``max_clusters(cluster,
+    in_smem)`` that the card holds at once, where that function is given
+    and knows (a positive count). At the flagship's B = 32 on an H100: 4
+    where all 32 clusters of 4 fit, else 3 (96 blocks of 341-342 output
+    capsules)."""
+    if cluster is not None:
+        if cluster not in FACTORED_CLUSTER_SIZES:
+            raise ValueError('factored_bwd_plan: cluster %d not in %s'
+                             % (cluster, FACTORED_CLUSTER_SIZES))
+        return _factored_plan_at(B, I, J, R, cluster)
+    for c in sorted(FACTORED_CLUSTER_SIZES, reverse=True)[:-1]:
+        if B * c > sms:
+            continue
+        p = _factored_plan_at(B, I, J, R, c)
+        held = max_clusters(p.cluster, p.in_smem) if max_clusters else 0
+        if held <= 0 or held >= B:
+            return p
+    return _factored_plan_at(B, I, J, R, 1)
+
+
+def card_clusters(device: torch.device, I: int, J: int, O: int, R: int
+                  ) -> Callable[[int, bool], int]:
+    """max_clusters for ``factored_bwd_plan``: what the card reports
+    (``capsule_routing_bwd_max_clusters``), asked once per shape."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+
+    def held(cluster: int, in_smem: bool) -> int:
+        key = (index, I, J, O, R, cluster, in_smem)
+        if key not in _clusters:
+            _clusters[key] = _kernels()['bwd_clusters'](
+                I, J, O, R, cluster, int(in_smem), index)
+        return _clusters[key]
+    return held
+
+
 def routing_bwd_factored(x: torch.Tensor, weight: torch.Tensor,
                          dv: torch.Tensor, num_iterations: int,
-                         need_dx: bool = True, need_dw: bool = True):
-    """K2, factored form: (dx [B, in, 8] or None, dweight [out,
-    out_length, 8] summed over the batch, or None), on the card."""
+                         need_dx: bool = True, need_dw: bool = True,
+                         plan: Optional[FactoredBwdPlan] = None):
+    """K2-G, factored form: (dx [B, in, 8] or None, dweight [out,
+    out_length, 8] summed over the batch, or None), on the card, run as
+    ``plan`` says (default: ``factored_bwd_plan`` for this card)."""
     bsz, in_caps, _, out_caps, out_len = _shapes(x, weight, num_iterations)
     dv = dv.contiguous()
     if dv.shape != (bsz, out_caps, out_len) or dv.dtype != torch.float32:
@@ -215,24 +389,29 @@ def routing_bwd_factored(x: torch.Tensor, weight: torch.Tensor,
         if dw is not None:
             dw.zero_()
         return dx, dw
+    if plan is None:
+        plan = factored_bwd_plan(
+            bsz, in_caps, out_caps, num_iterations, _sm_count(x.device),
+            max_clusters=card_clusters(x.device, in_caps, out_caps, out_len,
+                                        num_iterations))
     k = _kernels()
-    _check_smem(k['bwd_smem'](in_caps, out_caps, num_iterations),
-                'the backward of %d in / %d out capsules'
-                % (in_caps, out_caps))
-    per = k['bwd_scratch'](in_caps, out_caps, out_len, num_iterations)
-    scratch = torch.empty(bsz * per, device=x.device, dtype=torch.float32)
+    planes = torch.empty_like(weight)  # W's rows as float4 planes
+    scratch = None
+    if not plan.in_smem:
+        scratch = torch.empty(plan.scratch_numel, device=x.device,
+                              dtype=torch.float32)
     fp = fq = None
-    if need_dw:
-        pairs = 2 * num_iterations - 1
+    if need_dw:  # the dW factors: two pairs a routing pass
+        pairs = 2 * num_iterations
         fp = torch.empty((bsz, pairs, out_caps, out_len), device=x.device,
                          dtype=torch.float32)
         fq = torch.empty((bsz, pairs, out_caps, FACTORED_IN_LENGTH),
                          device=x.device, dtype=torch.float32)
     _check_launch(k['bwd'](
         x.data_ptr(), weight.data_ptr(), dv.data_ptr(), _ptr(dx), _ptr(dw),
-        scratch.data_ptr(), _ptr(fp), _ptr(fq), bsz, in_caps, out_caps,
-        out_len, num_iterations, x.device.index, _stream(x)),
-        'capsule_routing_bwd')
+        planes.data_ptr(), _ptr(scratch), _ptr(fp), _ptr(fq), bsz, in_caps,
+        out_caps, out_len, num_iterations, plan.cluster, int(plan.in_smem),
+        x.device.index, _stream(x)), 'capsule_routing_bwd')
     routing_bwd_factored.launches += 1
     return dx, dw
 
@@ -281,15 +460,7 @@ def votes_bwd_plan(B: int, I: int, L: int, J: int, O: int, R: int,
     do not. dx's product (B I x L in tiles of 128 x 104, one block per SM)
     splits its K into runs of whole 32-deep steps, as many as fill the SMs
     once."""
-    if cluster is None:
-        fits = [c for c in CLUSTER_SIZES if B * c <= sms]
-        cluster = max(fits) if fits else 1
-    elif cluster not in CLUSTER_SIZES:
-        raise ValueError('votes_bwd_plan: cluster %d not in %s'
-                         % (cluster, CLUSTER_SIZES))
-    cluster = min(cluster, J)
-    slices = tuple((r * J // cluster, (r + 1) * J // cluster)
-                   for r in range(cluster))
+    cluster = _cluster_size(B, J, sms, cluster, 'votes_bwd_plan')
     keep = votes_bwd_smem_bytes(I, J, O, R, cluster, True) <= MAX_SMEM_BYTES
     smem = votes_bwd_smem_bytes(I, J, O, R, cluster, keep)
     if smem > MAX_SMEM_BYTES:
@@ -302,7 +473,7 @@ def votes_bwd_plan(B: int, I: int, L: int, J: int, O: int, R: int,
     splits = max(1, min(steps, sms // tiles))
     chunk = -(-steps // splits) * GEMM_BK
     splits = -(-J * O // chunk)
-    return VotesBwdPlan(cluster, slices, B * cluster, smem, keep,
+    return VotesBwdPlan(cluster, _slices(J, cluster), B * cluster, smem, keep,
                         B * I * J * O, splits, chunk,
                         splits * B * I * L if splits > 1 else 0)
 
@@ -406,6 +577,13 @@ def tf32x3_matmul_reference(a: torch.Tensor, b: torch.Tensor
     return al @ bh + ah @ bl + ah @ bh
 
 
+def _squash_grad(n2: torch.Tensor):
+    """The squash scale g(n2) and dg/dn2 as the kernels compute them."""
+    inv1, rs = 1 / (1 + n2), torch.rsqrt(n2 + 1e-8)
+    return (n2 * inv1 * rs,
+            inv1 * rs - n2 * inv1 * inv1 * rs - 0.5 * n2 * inv1 * rs ** 3)
+
+
 def votes_bwd_reference(x: torch.Tensor, weight: torch.Tensor,
                         dv: torch.Tensor, num_iterations: int,
                         need_dx: bool = True, need_dw: bool = True,
@@ -438,10 +616,7 @@ def votes_bwd_reference(x: torch.Tensor, weight: torch.Tensor,
     grad_v, db = dv, 0
     for r in reversed(range(num_iterations)):
         s, c = ss[r], cs[r]
-        n2 = (s * s).sum(-1, keepdim=True)
-        inv1, rs = 1 / (1 + n2), torch.rsqrt(n2 + 1e-8)
-        g = n2 * inv1 * rs
-        gp = inv1 * rs - n2 * inv1 * inv1 * rs - 0.5 * n2 * inv1 * rs ** 3
+        g, gp = _squash_grad((s * s).sum(-1, keepdim=True))
         ds = grad_v * g + s * (2 * (grad_v * s).sum(-1, keepdim=True) * gp)
         dc = torch.einsum('bijo,bjo->bij', u, ds)
         db = c * (dc - (c * dc).sum(2, keepdim=True)) + db
@@ -452,6 +627,104 @@ def votes_bwd_reference(x: torch.Tensor, weight: torch.Tensor,
     du2 = du.reshape(bsz * in_caps, out_caps * out_len)
     return (matmul(du2, w2).view(x.shape) if need_dx else None,
             matmul(du2.t(), x2).view(weight.shape) if need_dw else None)
+
+
+def votes_fwd_reference(x: torch.Tensor, weight: torch.Tensor,
+                        num_iterations: int,
+                        matmul=torch.matmul) -> torch.Tensor:
+    """K1-D's algorithm in plain PyTorch: the vote product u = x W^T,
+    computed by ``matmul`` (``tf32x3_matmul_reference`` emulates the
+    kernel's), then the plain routing over u."""
+    bsz, in_caps, in_len = x.shape
+    out_caps, out_len = weight.shape[:2]
+    u = matmul(x.reshape(bsz * in_caps, in_len),
+               weight.reshape(out_caps * out_len, in_len).t())
+    return dynamic_routing(u.view(bsz, in_caps, out_caps, out_len),
+                           num_iterations)
+
+
+def factored_bwd_reference(x: torch.Tensor, weight: torch.Tensor,
+                           dv: torch.Tensor, num_iterations: int,
+                           cluster: int = 1, need_dx: bool = True,
+                           need_dw: bool = True):
+    """K2-G's algorithm in plain PyTorch, for x [B, I, 8] and weight [J, O,
+    8]: the output capsules split into ``cluster`` slices as
+    ``factored_bwd_plan`` splits them, the votes never formed. Forward: each
+    slice's (max, sum of exp) of every logit row, combined over the slices
+    in rank order, the couplings c = exp(b - max_slice) exp(max_slice -
+    max) / sum, y_j = sum_i c_ij x_i, a_j += W_j^T v_j; the a_j and y_j of
+    every pass stashed. Reverse, per pass: ds_j through the squash, e_j =
+    W_j^T ds_j, the couplings recomputed, rho_i = sum_j c_ij x_i . e_j
+    summed over the slices in rank order, the logit gradient db, each
+    slice's part of dx and the previous pass's dv_j = W_j z_j with z_j =
+    sum_i db_ij x_i; dx summed over the slices in rank order, dW from the
+    factors (ds_j, y_j) and (v_j, z_j). Returns (dx or None, dW or None)."""
+    bsz, in_caps, in_len = x.shape
+    out_caps, out_len = weight.shape[:2]
+    R = num_iterations
+    slices = _slices(out_caps, min(cluster, out_caps))
+    w = weight
+    a = x.new_zeros((bsz, out_caps, in_len))
+    stash_a, stash_y, stats = [], [], []
+    for r in range(R):
+        logits = torch.einsum('bil,bjl->bij', x, a)
+        parts = []
+        for j0, j1 in slices:
+            mq = logits[:, :, j0:j1].amax(2, keepdim=True)
+            pq = torch.exp(logits[:, :, j0:j1] - mq)
+            parts.append((mq, pq.sum(2, keepdim=True), pq))
+        m = parts[0][0]
+        for mq, _, _ in parts[1:]:
+            m = torch.maximum(m, mq)
+        z = 0
+        for mq, zq, _ in parts:
+            z = z + zq * torch.exp(mq - m)
+        zi = 1 / z
+        c = torch.cat([pq * (torch.exp(mq - m) * zi) for mq, _, pq in parts],
+                      2)
+        y = torch.einsum('bij,bil->bjl', c, x)
+        stash_a.append(a)
+        stash_y.append(y)
+        stats.append((m, zi))
+        if r < R - 1:
+            s = torch.einsum('jol,bjl->bjo', w, y)
+            g, _ = _squash_grad((s * s).sum(-1, keepdim=True))
+            a = a + torch.einsum('bjo,jol->bjl', g * s, w)
+    dx_parts = [x.new_zeros(x.shape) for _ in slices]
+    dw = torch.zeros_like(w)
+    grad_v, db = dv, None
+    for r in reversed(range(R)):
+        y = stash_y[r]
+        s = torch.einsum('jol,bjl->bjo', w, y)
+        g, gp = _squash_grad((s * s).sum(-1, keepdim=True))
+        ds = grad_v * g + s * (2 * (grad_v * s).sum(-1, keepdim=True) * gp)
+        e = torch.einsum('bjo,jol->bjl', ds, w)
+        dw = dw + torch.einsum('bjo,bjl->jol', ds, y)
+        m, zi = stats[r]
+        c = torch.exp(torch.einsum('bil,bjl->bij', x, stash_a[r]) - m) * zi
+        dc = torch.einsum('bil,bjl->bij', x, e)
+        rho = 0
+        for j0, j1 in slices:
+            rho = rho + (c * dc)[:, :, j0:j1].sum(2, keepdim=True)
+        if r > 0:
+            db = c * (dc - rho) + (0 if db is None else db)
+            t = stash_a[r] - stash_a[r - 1]
+        for part, (j0, j1) in zip(dx_parts, slices):
+            part += torch.einsum('bij,bjl->bil', c[:, :, j0:j1],
+                                 e[:, j0:j1])
+            if r > 0:
+                part += torch.einsum('bij,bjl->bil', db[:, :, j0:j1],
+                                     t[:, j0:j1])
+        if r > 0:
+            zr = torch.einsum('bij,bil->bjl', db, x)
+            grad_v = torch.einsum('jol,bjl->bjo', w, zr)
+            sp = torch.einsum('jol,bjl->bjo', w, stash_y[r - 1])
+            gprev, _ = _squash_grad((sp * sp).sum(-1, keepdim=True))
+            dw = dw + torch.einsum('bjo,bjl->jol', gprev * sp, zr)
+    dx = dx_parts[0]
+    for part in dx_parts[1:]:
+        dx = dx + part
+    return (dx if need_dx else None), (dw if need_dw else None)
 
 
 def _on_cpu(x, weight) -> bool:

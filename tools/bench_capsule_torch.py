@@ -2,7 +2,7 @@
 """Microbenchmark of the port's capsule-routing kernels at the flagship
 shapes.
 
-    python3 tools/bench_capsule_torch.py [--bwd [--profile] | --variants]
+    python3 tools/bench_capsule_torch.py [--bwd] [--profile] [--variants]
         [--batch 128] [--shape 48,8,1024,32] [--device cuda]
 
 The port of tools/bench_capsule.py, with no JAX. ``--shape`` is
@@ -26,18 +26,26 @@ events, best of two runs of each function in turns (a, b, b, a):
 - ``--variants``: the plain routing and K1, then every variant at every NB
   of ``SWEEP`` in turns with K1.
 
-With ``--bwd --profile`` at a votes-form shape (in_length > 8, the
-discriminator class head: ``--shape 16,512,201,16 --batch 32``) it also
-records 20 calls of K2-D (``routing_bwd_votes``) under torch.profiler, once
-with dx and dW and once with dx only (``need_dw=False``, the generator
-phase of the step), and prints the device time per call of each kernel
-inside it in launch order (product u, routing, product dx, product dW).
-Beside it, the yardstick: the same three products as ``torch.matmul``
-calls on inputs of the same shapes, in float32 with TF32 off and again
-with TF32 on, each timed (CUDA events, in turns with K2-D) and profiled;
-the port never calls them. Last, the plan's choice and a sweep of K2-D
-over every cluster size of ``CLUSTER_SIZES``, forced through
-``votes_bwd_plan``: CUDA events in turns, and the routing's device time.
+``--profile`` adds the kernels' device time under torch.profiler (20
+calls after a warm-up, each kernel inside the call in launch order) and,
+where the routing runs on a cluster of blocks per sample, a sweep over
+every cluster size of ``CLUSTER_SIZES`` forced through the plan (CUDA
+events in turns, and the routing kernel's device time):
+
+- forward at a votes-form shape (in_length > 8, the discriminator class
+  head: ``--shape 16,512,201,16 --batch 32``): K1-D (``routing_fwd_votes``),
+  its 3xTF32 vote product and its routing, and the cluster sweep; at
+  in_length 8, K1-G's one kernel;
+- ``--bwd`` at in_length 8 (the generator head: ``--shape 48,8,1024,32
+  --batch 32``): K2-G (``routing_bwd_factored``) with dx and dW and with dx
+  only (``need_dw=False``), its routing kernel and its dW sum, and the
+  cluster sweep;
+- ``--bwd`` at a votes-form shape: K2-D (``routing_bwd_votes``) with dx
+  and dW and with dx only, its kernels (product u, routing, product dx,
+  product dW). Beside it, the yardstick: the same three products as
+  ``torch.matmul`` calls on inputs of the same shapes, in float32 with TF32
+  off and again with TF32 on, each timed (CUDA events, in turns with K2-D)
+  and profiled; the port never calls them. Then the cluster sweep.
 
 It needs a CUDA card, and refuses to run without one, unless ``--device
 cpu`` is given: then the same runs on the CPU, where every wrapper takes
@@ -61,6 +69,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
+from text2img_ekl_tpu_torch.ops import capsule_cuda as cc  # noqa: E402
 from text2img_ekl_tpu_torch.ops import capsule_variants as cv  # noqa: E402
 from text2img_ekl_tpu_torch.ops.capsule import capsule_linear  # noqa: E402
 from text2img_ekl_tpu_torch.ops.capsule_cuda import \
@@ -87,13 +96,12 @@ def parse_args(argv=None):
                     help='in_caps,in_length,out_caps,out_length')
     ap.add_argument('--device', choices=('cuda', 'cpu'), default='cuda')
     ap.add_argument('--profile', action='store_true',
-                    help='with --bwd at a votes-form shape: device time of '
-                    'each kernel inside K2-D, and the torch.matmul '
-                    'yardstick')
+                    help='device time of each kernel inside K1 (or with '
+                    '--bwd, K2), and the cluster sweep')
     args = ap.parse_args(argv)
-    if args.profile and (args.device != 'cuda' or not args.bwd):
-        ap.error('--profile reads device time of K2-D: it needs --bwd and '
-                 '--device cuda')
+    if args.profile and (args.device != 'cuda' or args.variants):
+        ap.error('--profile reads device time of the kernels: it needs '
+                 '--device cuda, and not --variants')
     return args
 
 
@@ -179,13 +187,132 @@ def kernel_trace(fn, calls=20):
             for k in range(per)]
 
 
-def _label(trace, products):
-    """Name the kernels of a K2-D trace: its tensor-core / SIMT products in
-    launch order take the names in ``products``, the rest their own."""
+def _short(name):
+    """A kernel's name without its return type, namespaces and arguments."""
+    name = name.replace('(anonymous namespace)::', '')
+    if name.startswith('void '):
+        name = name[5:]
+    return name.split('(')[0].split('<')[0].split('::')[-1]
+
+
+def _label(trace, products=()):
+    """Name the kernels of a trace: the 3xTF32 products in launch order take
+    the names in ``products``, a routing kernel is 'routing', the rest keep
+    their own."""
     names = iter(products)
-    return [('product %s' % next(names, '?') if 'gemm' in n and 'sum' not in n
-             else 'routing' if 'routing' in n else n.split('(')[0][-40:], us)
-            for n, us in trace]
+    out = []
+    for n, us in trace:
+        short = _short(n)
+        if short == 'gemm_kernel':
+            out.append(('product %s' % next(names, '?'), us))
+        else:
+            out.append(('routing' if 'routing' in short else short, us))
+    return out
+
+
+def _print_trace(what, trace):
+    print('%s device time per call: %s' % (
+        what, '%.1f us (%s)' % (sum(us for _, us in trace), '; '.join(
+            '%s %.1f' % kv for kv in trace)) if trace else
+        'not recorded (the profiler saw no device activity)'))
+
+
+def cluster_sweep(who, plans, call, device, products=()):
+    """Each plan of ``plans`` {cluster: plan} timed with CUDA events in
+    turns through ``call(plan)``, and its routing kernel's device time;
+    prints and returns {cluster: (events ms, routing us)}."""
+    fns = {c: (lambda p=p: call(p)) for c, p in plans.items()}
+    best = best_ms(fns, device)
+    out = {}
+    for c, p in plans.items():
+        trace = _label(kernel_trace(fns[c]), products)
+        routing = sum(us for n, us in trace if n == 'routing')
+        out[c] = (best[c][0], routing)
+        print('%s cluster sweep C=%d (%d blocks, %d B of shared memory a '
+              'block): %.4f ms (best of 2 x %d, in turns; all %s), routing %s '
+              'device' % (who, c, p.blocks, p.smem_bytes, best[c][0], TIMED,
+                          ['%.4f' % v for v in best[c][1]],
+                          '%.1f us' % routing if trace else 'not recorded'))
+    return out
+
+
+def sweep_plans(plan_fn, sizes=cc.CLUSTER_SIZES):
+    """{cluster: plan_fn(cluster)} over ``sizes``, each size the plan clamps
+    to once."""
+    plans = {}
+    for c in sizes:
+        p = plan_fn(c)
+        plans.setdefault(p.cluster, p)
+    return plans
+
+
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def profile_fwd(x, w):
+    """K1's device time by kernel; at a votes-form shape also K1-D's plan
+    and cluster sweep. Prints and returns {'k1': trace, 'sweep': {cluster:
+    (events ms, routing us)}}."""
+    out = {'k1': _label(kernel_trace(lambda: capsule_routing(x, w, ITERS)),
+                        ('u',))}
+    votes = x.shape[2] != cc.FACTORED_IN_LENGTH
+    _print_trace('K1-D' if votes else 'K1-G', out['k1'])
+    if votes:
+        shape = x.shape + w.shape[:2]
+        plan = cc.votes_fwd_plan(*shape, _sms(x.device))
+        print('K1-D plan on %d SMs: clusters of %d, %d blocks, %d B of shared '
+              'memory a block, votes in shared memory %s'
+              % (_sms(x.device), plan.cluster, plan.blocks, plan.smem_bytes,
+                 plan.votes_in_smem))
+        out['sweep'] = cluster_sweep(
+            'K1-D', sweep_plans(lambda c: cc.votes_fwd_plan(
+                *shape, _sms(x.device), cluster=c)),
+            lambda p: cc.routing_fwd_votes(x, w, ITERS, plan=p), x.device,
+            ('u',))
+    return out
+
+
+def _dv(x, w):
+    rng = np.random.default_rng(1)
+    return torch.from_numpy(rng.standard_normal(
+        (x.shape[0],) + w.shape[:2], dtype=np.float32)).to(x.device)
+
+
+def profile_factored_bwd(x, w):
+    """K2-G's device time by kernel (its routing, then the dW sum), with dx
+    and dW and with dx only, its plan and its cluster sweep; prints and
+    returns {'k2g': {need_dw: trace}, 'sweep': {cluster: (events ms,
+    routing us)}}."""
+    dv = _dv(x, w)
+    out = {'k2g': {}}
+    for need_dw in (True, False):
+        trace = _label(kernel_trace(lambda: cc.routing_bwd_factored(
+            x, w, dv, ITERS, True, need_dw)))
+        out['k2g'][need_dw] = trace
+        _print_trace('K2-G %s' % ('dx and dW' if need_dw else 'dx only'),
+                     trace)
+    bsz, in_caps = x.shape[:2]
+    out_caps, out_len = w.shape[:2]
+    held = cc.card_clusters(x.device, in_caps, out_caps, out_len, ITERS)
+    plan = cc.factored_bwd_plan(bsz, in_caps, out_caps, ITERS,
+                                _sms(x.device), max_clusters=held)
+    print('K2-G plan on %d SMs: clusters of %d, %d blocks, %d B of shared '
+          'memory a block, stashes in shared memory %s; clusters the card '
+          'holds at once: %s' % (
+              _sms(x.device), plan.cluster, plan.blocks, plan.smem_bytes,
+              plan.in_smem, ', '.join('%d of %d' % (held(
+                  p.cluster, p.in_smem), c) for c, p in sweep_plans(
+                      lambda c: cc.factored_bwd_plan(
+                          bsz, in_caps, out_caps, ITERS, _sms(x.device),
+                          cluster=c), cc.FACTORED_CLUSTER_SIZES).items())))
+    out['sweep'] = cluster_sweep(
+        'K2-G', sweep_plans(lambda c: cc.factored_bwd_plan(
+            bsz, in_caps, out_caps, ITERS, _sms(x.device), cluster=c),
+            cc.FACTORED_CLUSTER_SIZES),
+        lambda p: cc.routing_bwd_factored(x, w, dv, ITERS, True, True,
+                                          plan=p), x.device)
+    return out
 
 
 def profile_votes_bwd(x, w, card):
@@ -194,12 +321,10 @@ def profile_votes_bwd(x, w, card):
     TF32, and the cluster sweep; prints and returns {'k2d': {need_dw:
     trace}, 'matmul': {tf32: (events ms, trace)}, 'k2d_ms': {need_dw:
     [events ms]}, 'sweep': {cluster: (events ms, routing us)}}."""
-    from text2img_ekl_tpu_torch.ops import capsule_cuda as cc
     bsz, in_caps, in_len = x.shape
     out_caps, out_len = w.shape[:2]
-    rng = np.random.default_rng(1)
-    dv = torch.from_numpy(rng.standard_normal(
-        (bsz, out_caps, out_len), dtype=np.float32)).to(x.device)
+    dv = _dv(x, w)
+    rng = np.random.default_rng(2)
     x2, w2 = x.reshape(bsz * in_caps, in_len), w.reshape(-1, in_len)
     du = torch.from_numpy(rng.standard_normal(
         (bsz * in_caps, out_caps * out_len), dtype=np.float32)).to(x.device)
@@ -214,11 +339,8 @@ def profile_votes_bwd(x, w, card):
         trace = _label(kernel_trace(k2d),
                        ('u', 'dx', 'dW') if need_dw else ('u', 'dx'))
         out['k2d'][need_dw] = trace
-        print('K2-D %s device time per call: %s' % (
-            'dx and dW' if need_dw else 'dx only',
-            '%.1f us (%s)' % (sum(us for _, us in trace), '; '.join(
-                '%s %.1f' % kv for kv in trace)) if trace else
-            'not recorded (the profiler saw no device activity)'))
+        _print_trace('K2-D %s' % ('dx and dW' if need_dw else 'dx only'),
+                     trace)
     prev = torch.backends.cuda.matmul.allow_tf32
     try:
         for tf32 in (False, True):
@@ -243,31 +365,18 @@ def profile_votes_bwd(x, w, card):
                       if trace else 'not recorded', card))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    sms = _sms(x.device)
     shape = (bsz, in_caps, in_len, out_caps, out_len)
     plan = cc.votes_bwd_plan(*shape, ITERS, sms)
     print('K2-D plan on %d SMs: clusters of %d, %d blocks, %d B of shared '
           'memory a block, votes in shared memory %s, dx split %d ways'
           % (sms, plan.cluster, plan.blocks, plan.smem_bytes,
              plan.votes_in_smem, plan.dx_splits))
-    plans = {}
-    for c in cc.CLUSTER_SIZES:
-        p = cc.votes_bwd_plan(*shape, ITERS, sms, cluster=c)
-        plans.setdefault(p.cluster, p)
-    fns = {c: (lambda p=p: cc.routing_bwd_votes(x, w, dv, ITERS, True, True,
-                                                plan=p))
-           for c, p in plans.items()}
-    best = best_ms(fns, x.device)
-    out['sweep'] = {}
-    for c, p in plans.items():
-        trace = _label(kernel_trace(fns[c]), ('u', 'dx', 'dW'))
-        routing = sum(us for n, us in trace if n == 'routing')
-        out['sweep'][c] = (best[c][0], routing)
-        print('K2-D cluster sweep C=%d (%d blocks, votes in shared memory '
-              '%s): %.4f ms (best of 2 x %d, in turns; all %s), routing %s '
-              'device' % (c, p.blocks, p.votes_in_smem, best[c][0], TIMED,
-                          ['%.4f' % v for v in best[c][1]],
-                          '%.1f us' % routing if trace else 'not recorded'))
+    out['sweep'] = cluster_sweep(
+        'K2-D', sweep_plans(lambda c: cc.votes_bwd_plan(
+            *shape, ITERS, sms, cluster=c)),
+        lambda p: cc.routing_bwd_votes(x, w, dv, ITERS, True, True, plan=p),
+        x.device, ('u', 'dx', 'dW'))
     return out
 
 
@@ -324,16 +433,18 @@ def run(args):
         row('K1+K2 forward+backward', None, best['kernel'], err)
         res = {'shape': (bsz,) + shape, 'rows': rows}
         if args.profile:
-            if shape[1] == 8:
-                raise SystemExit('--profile profiles K2-D, the votes form: '
-                                 'give an in_length other than 8')
-            res['profile'] = profile_votes_bwd(x, w, card)
+            res['profile'] = (profile_factored_bwd(x, w) if shape[1] ==
+                              cc.FACTORED_IN_LENGTH else
+                              profile_votes_bwd(x, w, card))
         return res
 
+    res = {'shape': (bsz,) + shape, 'rows': rows}
     with torch.no_grad():
         best = best_ms({'plain': plain, 'K1': k1}, device)
         row('plain', None, best['plain'], 0.0)
         row('K1', None, best['K1'], k1_err)
+        if args.profile:
+            res['profile'] = profile_fwd(x, w)
         if args.variants:
             for name, nbs in SWEEP:
                 fn = cv.KERNELS[name]
@@ -344,7 +455,7 @@ def run(args):
                     best = best_ms({'V': lambda: fn(x, w, ITERS, nb=nb),
                                     'K1': k1}, device)
                     row(name, nb, best['V'], err, best['K1'][0])
-    return {'shape': (bsz,) + shape, 'rows': rows}
+    return res
 
 
 def main(argv=None) -> int:

@@ -31,12 +31,11 @@ GROUPS = (('K3 fused BN+GLU', ('bn_glu_kernel',)),
           ('K4 conv weight gradient', ('dw_wgmma', 'dw_partial',
                                        'dw_reduce')),
           ('K1-G capsule routing', ('routing_fwd_kernel',)),
-          ('K1-D capsule routing', ('routing_votes_fwd_kernel',)),
-          ('K2-G routing backward', ('routing_bwd_factored_kernel',
+          ('K1-D capsule routing', ('routing_votes_fwd_cluster_kernel',)),
+          ('K2-G routing backward', ('routing_bwd_factored_cluster_kernel',
                                      'dw_factored_kernel')),
           ('K2-D routing backward', ('routing_bwd_cluster_kernel',)),
-          ('K2-D products (3xTF32)', ('gemm_tf32x3',)),
-          ('K1-D vote product', ('gemm_f32_kernel',)),
+          ('K1-D and K2-D products (3xTF32)', ('gemm_tf32x3',)),
           ('optimizer', ('adam', 'multi_tensor')),
           ('convolution', ('conv', 'gemm', 'xmma', 'cutlass', 'sm90_')),
           ('batch norm', ('batch_norm', 'bn_')),
