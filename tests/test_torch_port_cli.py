@@ -136,20 +136,26 @@ def test_eval_trainer_honours_the_kernel_switches(tmp_path):
 
 
 @pytest.mark.parametrize('bn_dtype', ['bfloat16', 'float32'])
-def test_trainer_says_once_that_batchnorm_runs_in_float32(tmp_path, capsys,
-                                                          bn_dtype):
-    """ROADMAP F13: the port normalises in float32 whatever TPU_BN_DTYPE
-    asks; a trainer built from a config with bf16 BatchNorm IO (the JAX
-    package's default) says so once, one with float32 says nothing."""
+def test_trainer_builds_batchnorm_in_the_config_dtype(tmp_path, bn_dtype):
+    """TPU_BN_DTYPE reaches every BatchNorm of the generator an eval-mode
+    trainer builds, and of both networks of a training state: their
+    outputs take that type, as the JAX package's policy casts them."""
+    from text2img_ekl_tpu_torch.nn.blocks import BatchNorm
+    from text2img_ekl_tpu_torch.train.state import create_train_state
     from text2img_ekl_tpu_torch.train.trainer import CondGANTrainer
     cfg = _tiny_cfg(tmp_path)
     cfg.TPU_BN_DTYPE = bn_dtype
-    capsys.readouterr()
-    CondGANTrainer(cfg, str(tmp_path / 'out'), data_loader=_loader(cfg, 2),
-                   device='cpu')
-    out = capsys.readouterr().out
-    assert out.count('TPU_BN_DTYPE') == (bn_dtype == 'bfloat16')
-    assert out.count('normalises in float32') == (bn_dtype == 'bfloat16')
+    trainer = CondGANTrainer(cfg, str(tmp_path / 'out'),
+                             data_loader=_loader(cfg, 2), device='cpu')
+    cfg.TRAIN.FLAG = True
+    cfg.GAN.DF_DIM = 8
+    state = create_train_state(cfg, 'cpu', seed=0)
+    want = getattr(torch, bn_dtype)
+    for net in [trainer.G, state.G] + list(state.Ds):
+        bns = [m for m in net.modules() if isinstance(m, BatchNorm)]
+        assert bns and all(m.bn_dtype == want for m in bns)
+    bn = next(m for m in trainer.G.modules() if isinstance(m, BatchNorm))
+    assert bn.eval()(torch.randn(2, bn.weight.numel())).dtype == want
 
 
 def test_cli_refuses_what_is_not_ported_or_not_there(tmp_path):

@@ -358,6 +358,98 @@ def test_k2g_refused_launch_raises(card):
     assert cc.routing_bwd_factored.launches == before
 
 
+# K1-G (factored form) through its plan: the flagship G head at the
+# training batch and at the sampler's, ragged capsule counts, out_length 16,
+# J smaller than most clusters
+K1G_SHAPES = [(32, 48, 8, 1024, 32), (320, 48, 8, 1024, 32),
+              (3, 13, 8, 1000, 32), (2, 16, 8, 512, 16), (4, 48, 8, 3, 32)]
+
+
+def _k1g_plan(shape, cluster=None):
+    bsz, in_caps, _, out_caps, out_len = shape
+    return cc.factored_fwd_plan(
+        bsz, in_caps, out_caps, 3,
+        sms=torch.cuda.get_device_properties(0).multi_processor_count,
+        cluster=cluster, max_clusters=cc.fwd_card_clusters(
+            torch.device('cuda', 0), in_caps, out_caps, out_len))
+
+
+@pytest.mark.parametrize('shape', K1G_SHAPES)
+@pytest.mark.parametrize('cluster', [1, 2, 3, 4, 8])
+def test_k1g_every_plan_matches_plain_routing(card, shape, cluster):
+    """K1-G forced through the plan at each cluster size (at a cluster of
+    1 the flagship's couplings live in the scratch) against the plain
+    routing at K1's bar, at 3 passes and at 1."""
+    bsz, in_caps, in_len, out_caps, out_len = shape
+    x, w = _inputs((bsz, in_caps, in_len), (out_caps, out_len, in_len), card,
+                   seed=12)
+    plan = _k1g_plan(shape, cluster)
+    assert plan.cluster == min(cluster, out_caps)
+    for iters in (3, 1):
+        before = cc.routing_fwd_factored.launches
+        with torch.no_grad():
+            out = cc.routing_fwd_factored(x, w, iters, plan=plan)
+            ref = capsule_linear(x, w, iters, 'dynamic')
+        torch.cuda.synchronize()
+        assert cc.routing_fwd_factored.launches == before + 1
+        assert_k1_close(out, ref)
+
+
+def test_k1g_default_plan_at_the_flagship(card):
+    """The wrapper's own plan: at the training batch the largest cluster
+    whose 32 clusters the card holds at once (3 or 4 on an H100's 132 SMs);
+    at the sampler's batch, which no cluster holds in one wave,
+    FACTORED_FWD_MULTI_WAVE; the couplings in shared memory; the
+    plan's shared memory and scratch as the library counts them."""
+    held = cc.fwd_card_clusters(torch.device('cuda', 0), 48, 1024, 32)
+    train, sampler = _k1g_plan(K1G_SHAPES[0]), _k1g_plan(K1G_SHAPES[1])
+    if torch.cuda.get_device_properties(0).multi_processor_count == 132:
+        assert train.cluster in (3, 4)
+        assert train.in_smem and held(train.cluster, True) >= 32
+        assert train.cluster == 4 or 0 < held(4, True) < 32
+        assert sampler.cluster == cc.FACTORED_FWD_MULTI_WAVE
+    lib = cc._kernels()
+    for s in K1G_SHAPES:
+        for c in cc.FACTORED_CLUSTER_SIZES:
+            p = _k1g_plan(s, c)
+            assert lib['fwd_smem'](s[1], s[3], p.cluster,
+                                   int(p.in_smem)) == p.smem_bytes
+            big = lib['fwd_scratch'](s[1], s[3], p.cluster)
+            assert big == cc._factored_fwd_floats(s[1], s[3], p.cluster)[1]
+    x, w = _inputs((320, 48, 8), (1024, 32, 8), card, seed=13)
+    with torch.no_grad():
+        assert_k1_close(capsule_routing(x, w, 3),
+                        capsule_linear(x, w, 3, 'dynamic'))
+
+
+@pytest.mark.parametrize('bsz', [32, 320])
+def test_k1g_is_deterministic(card, bsz):
+    """The softmax statistics combine in rank order: two calls give the
+    same bits."""
+    x, w = _inputs((bsz, 48, 8), (1024, 32, 8), card, seed=14)
+    with torch.no_grad():
+        first = capsule_routing(x, w, 3)
+        second = capsule_routing(x, w, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_k1g_refused_launch_raises(card):
+    """A launch that the library or the card refuses raises and counts no
+    launch; nothing falls back: a cluster of 16, and the couplings kept in
+    shared memory at a cluster of 1 (238 KB a block)."""
+    shape = K1G_SHAPES[0]
+    x, w = _inputs((32, 48, 8), (1024, 32, 8), card)
+    before = cc.routing_fwd_factored.launches
+    plan = _k1g_plan(shape)
+    with torch.no_grad():
+        for bad in (plan._replace(cluster=16, blocks=32 * 16),
+                    _k1g_plan(shape, 1)._replace(in_smem=True)):
+            with pytest.raises(RuntimeError, match='failed to launch'):
+                cc.routing_fwd_factored(x, w, 3, plan=bad)
+    assert cc.routing_fwd_factored.launches == before
+
+
 def _k1d_plan(shape, cluster=None):
     return cc.votes_fwd_plan(*shape, sms=torch.cuda.get_device_properties(
         0).multi_processor_count, cluster=cluster)
@@ -516,6 +608,7 @@ def _tiny_step_metrics(card, **switches):
     cfg.GAN.GF_DIM = cfg.GAN.DF_DIM = 8
     cfg.TRAIN.BATCH_SIZE = 4
     cfg.TPU_COMPUTE_DTYPE = 'float32'
+    cfg.TPU_BN_DTYPE = 'float32'
     rng = np.random.default_rng(0)
     labels = rng.integers(0, cfg.GAN.ENTITY_DIM, 4)
     host = {
@@ -611,6 +704,29 @@ def test_k3_matches_reference(card, shape, dtype):
     if dtype == torch.float32:
         np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
     else:  # one bfloat16 ulp: 2^(exponent - 7)
+        ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(ref), 1e-30))) - 7)
+        assert (np.abs(out - ref) <= ulp).all()
+
+
+@pytest.mark.parametrize('shape', [(32, 128, 64, 64), (3, 24, 5, 7), (5, 16)])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_k3_bfloat16_affine_matches_reference(card, shape, dtype):
+    """The affine in bfloat16 (TPU_BN_DTYPE bfloat16): the same rounded
+    products and sums as the plain version; the output one ulp of its type
+    apart at most (float32: 1e-6)."""
+    y, mean, var, scale, bias = _bn_glu_inputs(shape, dtype, card, seed=2)
+    before = bn_glu.bn_glu_kernel.launches
+    with torch.no_grad():
+        out = bn_glu.fused_bn_glu(y, mean, var, scale, bias, torch.bfloat16)
+        ref = bn_glu.bn_glu_reference(y, mean, var, scale, bias,
+                                      torch.bfloat16)
+    torch.cuda.synchronize()
+    assert bn_glu.bn_glu_kernel.launches == before + 1
+    assert out.dtype == dtype
+    out, ref = out.float().cpu().numpy(), ref.float().cpu().numpy()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+    else:
         ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(ref), 1e-30))) - 7)
         assert (np.abs(out - ref) <= ulp).all()
 

@@ -15,6 +15,16 @@ Tolerances, float32 on both sides:
   * the fused generator against JAX's: 1e-5 on images and BN buffers, at
     batch 4 (at batch 2 train-mode BatchNorm statistics are ill-conditioned,
     ROADMAP F9).
+
+The BatchNorm dtype bfloat16 (TPU_BN_DTYPE's default): the affine runs in
+bfloat16 on both sides (y, k and b rounded, the product and the sum each
+rounded once), the same bits; the forward takes the float32 bar, or one
+bfloat16 ulp where y and the output are bfloat16. The backward
+differentiates the composition in bfloat16 (GLU included) on both sides:
+y's gradient within 1 ulp(max|ref|) (the logistic's bfloat16 steps,
+rounded by XLA:CPU three times and by torch once), the four per-channel
+gradients, sums over every row of bfloat16 terms that the two frameworks
+accumulate differently, within 8 ulp(max|ref|).
 """
 
 import copy
@@ -112,6 +122,47 @@ def test_fused_bn_glu_gradients_match_jax():
     for name, g, w in zip(('y', 'mean', 'var', 'scale', 'bias'), got, want):
         np.testing.assert_allclose(g.numpy(), _nchw(w), rtol=1e-5, atol=1e-5,
                                    err_msg=name)
+
+
+def _bf16_ulp(v):
+    return np.exp2(np.floor(np.log2(np.maximum(np.abs(v), 1e-30))) - 7)
+
+
+@pytest.mark.parametrize('y_dtype', ['float32', 'bfloat16'])
+def test_fused_bn_glu_in_bfloat16_matches_jax(y_dtype):
+    y, mean, var, scale, bias = _bn_inputs(np.random.default_rng(2),
+                                           (3, 5, 7, 32))
+    yj = jnp.asarray(y).astype(y_dtype)
+    ref = jbn_glu.fused_bn_glu(yj, mean, var, scale, bias, jnp.bfloat16,
+                               True)
+    ref = _nchw(np.asarray(ref.astype(jnp.float32)))
+    yt = _t(_nchw(np.asarray(yj.astype(jnp.float32)))).to(
+        getattr(torch, y_dtype))
+    out = bn_glu.fused_bn_glu(yt, _t(mean), _t(var), _t(scale), _t(bias),
+                              torch.bfloat16)
+    assert out.dtype == yt.dtype
+    out = out.float().numpy()
+    if y_dtype == 'float32':
+        np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+    else:
+        assert (np.abs(out - ref) <= _bf16_ulp(ref)).all()
+
+
+def test_fused_bn_glu_gradients_in_bfloat16_match_jax():
+    rng = np.random.default_rng(3)
+    inputs = _bn_inputs(rng, (3, 5, 7, 32))
+    dz = rng.standard_normal((3, 5, 7, 16), dtype=np.float32)
+    _, vjp = jax.vjp(lambda *a: jbn_glu.fused_bn_glu(*a, jnp.bfloat16, True),
+                     *[jnp.asarray(a) for a in inputs])
+    want = vjp(jnp.asarray(dz))
+    t_in = [_t(_nchw(a)).requires_grad_(True) for a in inputs]
+    got = torch.autograd.grad(bn_glu.fused_bn_glu(*t_in, torch.bfloat16),
+                              t_in, _t(_nchw(dz)))
+    for name, g, w in zip(('y', 'mean', 'var', 'scale', 'bias'), got, want):
+        w = _nchw(w)
+        ulps = 1 if name == 'y' else 8
+        d = np.abs(g.numpy() - w)
+        assert d.max() <= ulps * _bf16_ulp(np.abs(w).max()), (name, d.max())
 
 
 def test_dw_supported_matches_jax():

@@ -128,11 +128,14 @@ def runs():
     return run_steps(small_cfg(), STEPS)
 
 
-def run_steps(cfg, steps):
+def run_steps(cfg, steps, port_cfgs=(), compiler_options=None):
     """``steps`` steps of JAX's make_train_step and of the port's from the
     same weights, batch and draws: per step the metrics, fakes and BN
     statistics of both, after step 1 the Adam first moments; and the
-    port's final state."""
+    port's final state. Each of ``port_cfgs`` runs the port's step once
+    more from the same weights, batch and draws (its records under
+    'port_cfgs'). ``compiler_options`` compiles JAX's step with those XLA
+    options."""
     cond_width = jstep.cond_code_width(cfg)
     G = jgen.build_generator(cfg, train_flag=True)
     Ds = jdisc.build_discriminators(cfg, cond_width)
@@ -142,18 +145,30 @@ def run_steps(cfg, steps):
     assert batch['real'][0].dtype == jnp.uint8
     sizes = cfg.branch_sizes()
 
-    tst = create_train_state(cfg, 'cpu', seed=0)
-    tst.G.load_state_dict(jax_generator_to_state_dict(
-        {'params': jst.g_params, 'batch_stats': jst.g_batch_stats}),
-        strict=True)
-    for D, p, s, size in zip(tst.Ds, jst.d_params, jst.d_batch_stats, sizes):
-        D.load_state_dict(jax_joint_d_to_state_dict(
-            {'params': p, 'batch_stats': s}, size), strict=True)
+    def port_state(c):
+        st = create_train_state(c, 'cpu', seed=0)
+        st.G.load_state_dict(jax_generator_to_state_dict(
+            {'params': jst.g_params, 'batch_stats': jst.g_batch_stats}),
+            strict=True)
+        for D, p, s, size in zip(st.Ds, jst.d_params, jst.d_batch_stats,
+                                 sizes):
+            D.load_state_dict(jax_joint_d_to_state_dict(
+                {'params': p, 'batch_stats': s}, size), strict=True)
+        return st
 
+    tst = port_state(cfg)
+    extra = [(make_train_step(c), port_state(c)) for c in port_cfgs]
     jfn = jstep.make_train_step(cfg, G, Ds)
+    if compiler_options:
+        jitted = jfn
+
+        def jfn(*args):
+            return jitted.lower(*args).compile(
+                compiler_options=compiler_options)(*args)
     tfn = make_train_step(cfg)
     tbatch = _port_batch(batch)
-    out = {'jax': [], 'port': [], 'sizes': sizes}
+    out = {'jax': [], 'port': [], 'sizes': sizes,
+           'port_cfgs': [[] for _ in port_cfgs]}
     for n in range(steps):
         rng = np.array([1, n], np.uint32)
         draws = _jax_draws(G, {'params': jst.g_params,
@@ -169,24 +184,31 @@ def run_steps(cfg, steps):
                 {'params': p, 'batch_stats': s}, size)) for p, s, size in
                 zip(jst.d_params, jst.d_batch_stats, sizes)],
         }
-        tm, tfakes = tfn(tst, tbatch, seed=n, draws=draws)
-        port_rec = {
-            'metrics': {k: float(v) for k, v in tm.items()},
-            'fakes': tfakes.numpy(),
-            'g_stats': _stats(tst.G.state_dict()),
-            'd_stats': [_stats(D.state_dict()) for D in tst.Ds],
-        }
+        def port_step(fn, st):
+            tm, tfakes = fn(st, tbatch, seed=n, draws=draws)
+            rec = {
+                'metrics': {k: float(v) for k, v in tm.items()},
+                'fakes': tfakes.numpy(),
+                'g_stats': _stats(st.G.state_dict()),
+                'd_stats': [_stats(D.state_dict()) for D in st.Ds],
+            }
+            if n == 0:
+                rec['g_mu'] = _moments(st.G, st.g_opt)
+                rec['d_mu'] = [_moments(D, o)
+                               for D, o in zip(st.Ds, st.d_opts)]
+            return rec
+
+        port_rec = port_step(tfn, tst)
         if n == 0:
             jax_rec['g_mu'] = jax_generator_to_state_dict(
                 {'params': jst.g_opt_state[0].mu})
             jax_rec['d_mu'] = [jax_joint_d_to_state_dict(
                 {'params': o[0].mu}, size)
                 for o, size in zip(jst.d_opt_states, sizes)]
-            port_rec['g_mu'] = _moments(tst.G, tst.g_opt)
-            port_rec['d_mu'] = [_moments(D, o)
-                                for D, o in zip(tst.Ds, tst.d_opts)]
         out['jax'].append(jax_rec)
         out['port'].append(port_rec)
+        for recs, (fn, st) in zip(out['port_cfgs'], extra):
+            recs.append(port_step(fn, st))
     out['port_state'] = tst
     return out
 

@@ -128,7 +128,7 @@ class Config:
     # loads the same in both packages. What the port does with each:
     # Compute dtype of convs and matmuls ('bfloat16' or 'float32'): used.
     TPU_COMPUTE_DTYPE: str = 'bfloat16'
-    # BatchNorm IO dtype: the port normalises in float32 always.
+    # BatchNorm IO dtype: statistics in float32, the output cast to it.
     TPU_BN_DTYPE: str = 'bfloat16'
     # Mesh and multi-device keys: one device only (ROADMAP.md M13).
     TPU_DATA_PARALLEL: int = 0

@@ -33,15 +33,54 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRun = 8;  // outputs per thread
 
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
 // The affine is a rounded product then a rounded sum, never contracted to
 // a fused multiply-add, so that it rounds as the plain version's separate
 // multiply and add do: where y*k nearly cancels b, a contraction would move
-// the small result by more than one bfloat16 ulp of it.
+// the small result by more than one bfloat16 ulp of it. kBf16: the affine
+// in bfloat16, as the JAX kernel computes it where the BatchNorm dtype is
+// bfloat16: y, k and b rounded to bfloat16, and the product and the sum
+// each rounded to bfloat16 (exact float32 operations on bfloat16 values,
+// then one rounding, as a bfloat16 multiply and add round).
+template <bool kBf16>
+__device__ __forceinline__ float affine(float y, float k, float b) {
+  if (!kBf16) return __fadd_rn(__fmul_rn(y, k), b);
+  const float p = round_bf16(__fmul_rn(round_bf16(y), round_bf16(k)));
+  return round_bf16(__fadd_rn(p, round_bf16(b)));
+}
+
+// a * sigmoid(g), the logistic in float32 as the TPU kernel does
+__device__ __forceinline__ float gate(float xa, float xg) {
+  return xa * (1.0f / (1.0f + expf(-xg)));
+}
+
+// the GLU of one output
+template <bool kBf16>
 __device__ __forceinline__ float glu1(float a, float g, float ka, float ba,
                                       float kg, float bg) {
-  const float xa = __fadd_rn(__fmul_rn(a, ka), ba);
-  const float xg = __fadd_rn(__fmul_rn(g, kg), bg);
-  return xa * (1.0f / (1.0f + expf(-xg)));
+  return gate(affine<kBf16>(a, ka, ba), affine<kBf16>(g, kg, bg));
+}
+
+// The bfloat16 affine of two neighbours at once, on the packed bfloat16
+// units: the same bits as affine<true>, since a product of two bfloat16
+// values is exact in float32 and a float32 sum of two bfloat16 values
+// rounds to bfloat16 as their exact sum does (where it is not exact, the
+// smaller one lies far below half an ulp of the larger). The _rn forms
+// keep ptxas from contracting the two into one fused multiply-add.
+__device__ __forceinline__ __nv_bfloat162 pair_bf16(const float* v, int i) {
+  return __floats2bfloat162_rn(v[i], v[i + 1]);
+}
+__device__ __forceinline__ __nv_bfloat162 pair_bf16(const __nv_bfloat16* v,
+                                                    int i) {
+  return __halves2bfloat162(v[i], v[i + 1]);
+}
+__device__ __forceinline__ float2 affine2(__nv_bfloat162 y,
+                                          __nv_bfloat162 k,
+                                          __nv_bfloat162 b) {
+  return __bfloat1622float2(__hadd2_rn(__hmul2_rn(y, k), b));
 }
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -58,7 +97,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f(float v) {
 
 // y [B, 2C, HW], out [B, C, HW]; k, b [2C] float32. One thread per run of
 // kRun outputs of one plane; `runs` = ceil(HW / kRun) runs per plane.
-template <typename T, bool kVec>
+template <typename T, bool kVec, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 bn_glu_kernel(const T* __restrict__ y, const float* __restrict__ k,
               const float* __restrict__ b, T* __restrict__ out,
@@ -88,9 +127,24 @@ bn_glu_kernel(const T* __restrict__ y, const float* __restrict__ k,
       reinterpret_cast<uint4*>(vg)[v] =
           __ldg(reinterpret_cast<const uint4*>(yg + x0) + v);
     }
+    if (kBf16) {
+      const __nv_bfloat162 ka2 = __float2bfloat162_rn(ka);
+      const __nv_bfloat162 ba2 = __float2bfloat162_rn(ba);
+      const __nv_bfloat162 kg2 = __float2bfloat162_rn(kg);
+      const __nv_bfloat162 bg2 = __float2bfloat162_rn(bg);
 #pragma unroll
-    for (int i = 0; i < kRun; ++i)
-      vo[i] = from_f<T>(glu1(to_f(va[i]), to_f(vg[i]), ka, ba, kg, bg));
+      for (int i = 0; i < kRun; i += 2) {
+        const float2 xa = affine2(pair_bf16(va, i), ka2, ba2);
+        const float2 xg = affine2(pair_bf16(vg, i), kg2, bg2);
+        vo[i] = from_f<T>(gate(xa.x, xg.x));
+        vo[i + 1] = from_f<T>(gate(xa.y, xg.y));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kRun; ++i)
+        vo[i] = from_f<T>(glu1<false>(to_f(va[i]), to_f(vg[i]), ka, ba, kg,
+                                      bg));
+    }
 #pragma unroll
     for (int v = 0; v < kVecs; ++v)
       reinterpret_cast<uint4*>(o + x0)[v] = reinterpret_cast<uint4*>(vo)[v];
@@ -99,12 +153,12 @@ bn_glu_kernel(const T* __restrict__ y, const float* __restrict__ k,
     for (int i = 0; i < kRun; ++i) {
       const long long x = x0 + i;
       if (x < HW)
-        o[x] = from_f<T>(glu1(to_f(ya[x]), to_f(yg[x]), ka, ba, kg, bg));
+        o[x] = from_f<T>(glu1<kBf16>(to_f(ya[x]), to_f(yg[x]), ka, ba, kg, bg));
     }
   }
 }
 
-template <typename T>
+template <typename T, bool kBf16>
 cudaError_t launch(const void* y, const float* k, const float* b, void* out,
                    long long B, int C, long long HW, cudaStream_t st) {
   const T* yt = static_cast<const T*>(y);
@@ -118,10 +172,10 @@ cudaError_t launch(const void* y, const float* k, const float* b, void* out,
                    reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   if (vec)
-    bn_glu_kernel<T, true><<<(unsigned)blocks, kThreads, 0, st>>>(
+    bn_glu_kernel<T, true, kBf16><<<(unsigned)blocks, kThreads, 0, st>>>(
         yt, k, b, ot, planes, C, HW, runs);
   else
-    bn_glu_kernel<T, false><<<(unsigned)blocks, kThreads, 0, st>>>(
+    bn_glu_kernel<T, false, kBf16><<<(unsigned)blocks, kThreads, 0, st>>>(
         yt, k, b, ot, planes, C, HW, runs);
   return cudaGetLastError();
 }
@@ -132,11 +186,13 @@ extern "C" {
 
 // y [B, 2C, HW] (NCHW with the spatial dims flattened), out [B, C, HW], of
 // one type: dtype 0 float32, 1 bfloat16; k and b [2C] float32 (the folded
-// affine). All contiguous, on `device`; `stream` is a cudaStream_t of that
-// device. Returns the CUDA error code of the launch (0 = success).
+// affine); bf16_affine: the affine in bfloat16 (the BatchNorm dtype
+// bfloat16), else in float32. All contiguous, on `device`; `stream` is a
+// cudaStream_t of that device. Returns the CUDA error code of the launch
+// (0 = success).
 int bn_glu_fwd(const void* y, const void* k, const void* b, void* out,
-               long long B, int C, long long HW, int dtype, int device,
-               void* stream) {
+               long long B, int C, long long HW, int dtype, int bf16_affine,
+               int device, void* stream) {
   if (B <= 0 || C <= 0 || HW <= 0) return (int)cudaErrorInvalidValue;
   // This library links its own CUDA runtime, whose current device is
   // separate from PyTorch's.
@@ -145,9 +201,13 @@ int bn_glu_fwd(const void* y, const void* k, const void* b, void* out,
   const float* kf = static_cast<const float*>(k);
   const float* bf = static_cast<const float*>(b);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return (int)launch<float>(y, kf, bf, out, B, C, HW, st);
-    case 1: return (int)launch<__nv_bfloat16>(y, kf, bf, out, B, C, HW, st);
+  switch (2 * dtype + (bf16_affine != 0)) {
+    case 0: return (int)launch<float, false>(y, kf, bf, out, B, C, HW, st);
+    case 1: return (int)launch<float, true>(y, kf, bf, out, B, C, HW, st);
+    case 2:
+      return (int)launch<__nv_bfloat16, false>(y, kf, bf, out, B, C, HW, st);
+    case 3:
+      return (int)launch<__nv_bfloat16, true>(y, kf, bf, out, B, C, HW, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

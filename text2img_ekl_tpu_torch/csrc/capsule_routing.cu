@@ -9,22 +9,35 @@
 // of ONE sample are 48 x 1024 x 32 floats = 6.3 MB. That is far beyond the
 // 227 KB of shared memory a block can use, and writing the votes to device
 // memory (2 GB at a batch of 320) would make the op bound by device-memory
-// bytes. The routing arithmetic of the factored form below is small (about
-// 3 GFLOP at B=320); what remains is reading W from L2 on every pass.
+// bytes. The routing arithmetic of the factored form below is small (0.27
+// GFLOP at B=32, 2.7 at B=320: 0.004 and 0.041 ms at the float32 peak);
+// what remains is latency: barriers, the exponentials and reading W from
+// L2 on every pass.
 //
-// What the design does about it: the weight is shared over the input
+// What the design does about it (K1-G): the weight is shared over the input
 // capsules and linear in x, so every routing quantity factors through the
 // input length L = 8 and the vote tensor never exists:
 //   s_j  = sum_i c_ij u_ij = W_j y_j,      y_j = sum_i c_ij x_i
 //   b_ij = sum_passes u_ij . v_j = x_i . a_j,  a_j = sum_passes W_j^T v_j
-// One block routes one sample. It keeps x (I x 8) and a (J x 8) in shared
-// memory; a thread owns output capsules j = tid, tid + 512, ... and
-// recomputes b_ij = x_i . a_j (8 FMAs) wherever it needs it. The softmax
-// over j needs, for each input capsule i, the max and the sum of exp over
-// all j: block reductions (warp shuffles, then one pass over the warps'
-// partials). The weight (1 MB at the flagship shape) is read once per pass
-// per sample and stays resident in the 50 MB L2 across blocks. Output is
-// written once. Floats throughout, as the JAX kernel computes in f32.
+// Two launches:
+// - W's rows as float4 planes (wt, 1 MB at the flagship), so that lanes
+//   reading the rows of consecutive output capsules read consecutive
+//   16-byte words;
+// - the routing on a cluster of C blocks per sample, each owning about
+//   J / C output capsules, with x, its slice's a_j, the couplings c_ij of
+//   the current pass [I][nj] and the exchange rows in shared memory (84 KB
+//   at C = 3; at C = 1 the couplings go to a per-block scratch in L2). The
+//   passes are K2-G's forward recompute without its stashes
+//   (capsule_common.cuh::factored_forward): the exponentials once a pass,
+//   warps over input-capsule rows so that a row's max and sum are warp
+//   reductions, two lanes per output capsule, and the softmax's (max, sum
+//   of exp) per input capsule crossing the cluster through distributed
+//   shared memory, combined in rank order: the same bits in every block
+//   and in every call. Blocks of 512 threads, one an SM.
+//   ops/capsule_cuda.py::factored_fwd_plan chooses C: the largest cluster
+//   of which the card holds the whole batch at once (3 at B = 32 on an
+//   H100), and where no cluster fits the batch in one wave, the cluster
+//   size the card's sweep found fastest (2).
 //
 // The discriminator class head (16 input capsules of length 8*ndf = 512,
 // 201 output capsules of length 16) takes the second entry point,
@@ -58,142 +71,82 @@ namespace {
 
 using namespace capsule;
 
-constexpr int kThreads = kRouteThreads;
-constexpr int kWarps = kRouteWarps;
+// ---- factored form (in_length 8): K1-G ------------------------------------
 
-// Shared memory: x [I][8] | a [J][8] | warp partials [kWarps][I] |
-// max [I] | 1/sum [I].
-__host__ __device__ inline size_t smem_bytes(int I, int J) {
-  return sizeof(float) *
-         ((size_t)I * kL + (size_t)J * kL + (size_t)kWarps * I + 2 * (size_t)I);
+// Where a block's arrays lie, in floats. Shared memory, always: x [I][8] |
+// a [njm][8] | the couplings' row scale [I] | exchange rows [2][2 I]; then,
+// in shared memory where it fits (`keep`), else in the block's part of a
+// scratch: the couplings c [I][ldp].
+struct FactoredFwdLayout {
+  size_t xs, ae, kk, xch, small, big;
+};
+
+__host__ __device__ inline FactoredFwdLayout factored_fwd_layout(int I, int J,
+                                                                 int C) {
+  const int njm = (J + C - 1) / C;
+  FactoredFwdLayout f;
+  size_t o = 0;
+  f.xs = o; o += (size_t)I * kL;
+  f.ae = o; o += (size_t)kL * njm;
+  f.kk = o; o += (size_t)I;
+  f.xch = o; o += 4 * (size_t)I;
+  f.small = (o + 3) & ~(size_t)3;
+  f.big = (size_t)I * factored_ldp(njm);
+  return f;
 }
 
+__host__ __device__ inline size_t factored_fwd_smem(int I, int J, int C,
+                                                    bool keep) {
+  const FactoredFwdLayout f = factored_fwd_layout(I, J, C);
+  return sizeof(float) * (f.small + (keep ? f.big : 0));
+}
+
+// Dynamic routing of x [B, I, 8] with W (as planes wt) on clusters of C
+// blocks, one cluster a sample; the block of rank q routes the output
+// capsules [q J / C, (q + 1) J / C) and writes their outputs. Blocks of
+// kRouteThreads (512) threads, one an SM (128 registers). Keep the bound's
+// minimum of one block an SM: without it the routing took 13 % longer on
+// an H100 (47.6 against 41.9 us at the flagship's B = 32).
 template <int O>
-__global__ void __launch_bounds__(kThreads)
-routing_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   float* __restrict__ out, int I, int J, int iters) {
+__global__ void __launch_bounds__(kRouteThreads, 1)
+routing_fwd_factored_cluster_kernel(const float* __restrict__ x,
+                                    const float4* __restrict__ wt,
+                                    float* __restrict__ out,
+                                    float* __restrict__ scratch, int I,
+                                    int J, int R, int keep) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const FactoredSlice sl = factored_slice((int)cluster.block_rank(), J, C);
+  const FactoredFwdLayout f = factored_fwd_layout(I, J, C);
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);
-  float* as = xs + (size_t)I * kL;
-  float* red = as + (size_t)J * kL;
-  float* mx = red + (size_t)kWarps * I;
-  float* zinv = mx + I;
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  const float* xb = x + (size_t)b * I * kL;
-  for (int k = tid; k < I * kL; k += kThreads) xs[k] = xb[k];
-  for (int k = tid; k < J * kL; k += kThreads) as[k] = 0.f;
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* xs = sm + f.xs;
+  float* acur = sm + f.ae;
+  float* cb = keep ? sm + f.small : scratch + (size_t)blockIdx.x * f.big;
+  const float* xb = x + (size_t)sl.b * I * kL;
+  for (int k = threadIdx.x; k < I * kL; k += kRouteThreads) xs[k] = xb[k];
+  for (int k = threadIdx.x; k < kL * sl.njm; k += kRouteThreads)
+    acur[k] = 0.f;
   __syncthreads();
-
-  for (int r = 0; r < iters; ++r) {
-    // (1) m_i = max_j b_ij
-    for (int i = 0; i < I; ++i) {
-      float xi[kL];
-      load8(xs + i * kL, xi);
-      float m = -INFINITY;
-      for (int j = tid; j < J; j += kThreads) {
-        float aj[kL];
-        load8(as + (size_t)j * kL, aj);
-        m = fmaxf(m, dot8(xi, aj));
-      }
-      m = warp_max(m);
-      if (lane == 0) red[warp * I + i] = m;
-    }
-    __syncthreads();
-    if (tid < I) {
-      float m = red[tid];
-      for (int k = 1; k < kWarps; ++k) m = fmaxf(m, red[k * I + tid]);
-      mx[tid] = m;
-    }
-    __syncthreads();
-
-    // (2) 1 / Z_i with Z_i = sum_j exp(b_ij - m_i)
-    for (int i = 0; i < I; ++i) {
-      float xi[kL];
-      load8(xs + i * kL, xi);
-      const float mi = mx[i];
-      float z = 0.f;
-      for (int j = tid; j < J; j += kThreads) {
-        float aj[kL];
-        load8(as + (size_t)j * kL, aj);
-        z += expf(dot8(xi, aj) - mi);
-      }
-      z = warp_sum(z);
-      if (lane == 0) red[warp * I + i] = z;
-    }
-    __syncthreads();
-    if (tid < I) {
-      float z = 0.f;
-      for (int k = 0; k < kWarps; ++k) z += red[k * I + tid];
-      zinv[tid] = 1.f / z;
-    }
-    __syncthreads();
-
-    // (3) per output capsule: y_j, s_j = W_j y_j, v_j = squash(s_j), then
-    //     a_j += W_j^T v_j, or write v_j after the last pass.
-    const bool last = (r == iters - 1);
-    for (int j = tid; j < J; j += kThreads) {
-      float aj[kL];
-      load8(as + (size_t)j * kL, aj);
-      float y[kL];
-#pragma unroll
-      for (int l = 0; l < kL; ++l) y[l] = 0.f;
-      for (int i = 0; i < I; ++i) {
-        float xi[kL];
-        load8(xs + i * kL, xi);
-        const float c = expf(dot8(xi, aj) - mx[i]) * zinv[i];
-#pragma unroll
-        for (int l = 0; l < kL; ++l) y[l] = fmaf(c, xi[l], y[l]);
-      }
-      const float* wj = w + (size_t)j * O * kL;
-      float s[O];
-      float t[kL];
-#pragma unroll
-      for (int l = 0; l < kL; ++l) t[l] = 0.f;
-      float n2 = 0.f;
-#pragma unroll
-      for (int o = 0; o < O; ++o) {
-        float wo[kL];
-        load8_global(wj + o * kL, wo);
-        const float so = dot8(wo, y);
-        s[o] = so;
-        n2 = fmaf(so, so, n2);
-#pragma unroll
-        for (int l = 0; l < kL; ++l) t[l] = fmaf(wo[l], so, t[l]);
-      }
-      const float scale = n2 / (1.f + n2) * rsqrtf(n2 + 1e-8f);
-      if (last) {
-        float4* ob = reinterpret_cast<float4*>(out + ((size_t)b * J + j) * O);
-#pragma unroll
-        for (int q = 0; q < O / 4; ++q)
-          ob[q] = make_float4(s[4 * q] * scale, s[4 * q + 1] * scale,
-                              s[4 * q + 2] * scale, s[4 * q + 3] * scale);
-      } else {
-        float* ap = as + (size_t)j * kL;
-#pragma unroll
-        for (int l = 0; l < kL; ++l) ap[l] = fmaf(scale, t[l], aj[l]);
-      }
-    }
-    __syncthreads();
-  }
+  int xp = 0;
+  factored_forward<O, false>(
+      cluster, sl, wt, xs, acur, cb, sm + f.kk, sm + f.xch, xp, nullptr,
+      nullptr, nullptr, nullptr, out + ((size_t)sl.b * J + sl.j0) * O, I, J,
+      C, R);
+  // no block leaves while another may still read its exchange rows
+  cluster.sync();
 }
 
 template <int O>
-cudaError_t launch(const float* x, const float* w, float* out, int B, int I,
-                   int J, int iters, cudaStream_t stream) {
-  const size_t smem = smem_bytes(I, J);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        routing_fwd_kernel<O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  routing_fwd_kernel<O><<<B, kThreads, smem, stream>>>(x, w, out, I, J, iters);
-  return cudaGetLastError();
+cudaError_t launch_factored(const float* x, const float* w, float* out,
+                            float* wt, float* scratch, int B, int I, int J,
+                            int R, int C, bool keep, cudaStream_t stream) {
+  cudaError_t e = launch_w_planes(w, wt, J, O, stream);
+  if (e != cudaSuccess) return e;
+  return launch_cluster(routing_fwd_factored_cluster_kernel<O>, B, C,
+                        factored_fwd_smem(I, J, C, keep), stream, x,
+                        (const float4*)wt, out, scratch, I, J, R, (int)keep);
 }
 
 // ---- materialised votes (in_length > 8) ----------------------------------
@@ -248,29 +201,67 @@ cudaError_t launch_votes(const float* u, float* out, int B, int I, int J,
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs; the wrapper checks it
-// against the card's limit before launching.
-size_t capsule_routing_smem_bytes(int I, int J) { return smem_bytes(I, J); }
+// Bytes of dynamic shared memory one block of K1-G's routing needs at
+// clusters of `cluster` blocks, the couplings in it where `keep` is set.
+size_t capsule_routing_fwd_smem_bytes(int I, int J, int cluster, int keep) {
+  return factored_fwd_smem(I, J, cluster, keep != 0);
+}
 
-// x [B, I, 8], w [J, O, 8], out [B, J, O]; all float32, contiguous and
-// 16-byte aligned, on `device`; `stream` is a cudaStream_t of that device.
-// Returns the CUDA error code of the launch (0 = success).
-int capsule_routing_fwd(const void* x, const void* w, void* out, int B, int I,
-                        int J, int O, int iters, int device, void* stream) {
-  if (B <= 0 || I <= 0 || I > kThreads || J <= 0 || iters <= 0)
+// floats of scratch one block needs where its couplings do not stay in
+// shared memory
+size_t capsule_routing_fwd_scratch_floats(int I, int J, int cluster) {
+  return factored_fwd_layout(I, J, cluster).big;
+}
+
+// How many clusters of `cluster` blocks of K1-G's routing the card can
+// hold at once (cudaOccupancyMaxActiveClusters; 0 where it cannot say):
+// the plan keeps every sample's cluster in one wave where it can.
+int capsule_routing_fwd_max_clusters(int I, int J, int O, int cluster,
+                                     int keep, int device) {
+  if (begin_call(device) != cudaSuccess) return 0;
+  const size_t smem = factored_fwd_smem(I, J, cluster, keep != 0);
+  if (O == 16)
+    return max_active_clusters(routing_fwd_factored_cluster_kernel<16>,
+                               cluster, smem);
+  if (O == 32)
+    return max_active_clusters(routing_fwd_factored_cluster_kernel<32>,
+                               cluster, smem);
+  return 0;
+}
+
+// K1-G, factored form, in_length 8. x [B, I, 8], w [J, O, 8], out [B, J,
+// O]; wt [J O 8] a scratch for W's planes; the routing on clusters of
+// `cluster` blocks (1..8, at most J) per sample, each block's couplings in
+// shared memory where `keep` is set, else in scratch [B * cluster *
+// capsule_routing_fwd_scratch_floats] (ops/capsule_cuda.py::
+// factored_fwd_plan chooses both). All float32,
+// contiguous and 16-byte aligned, on `device`; `stream` is a cudaStream_t of
+// that device. Returns the CUDA error code (0 = success); a cluster launch
+// that the card refuses returns its error, and nothing falls back to
+// another form.
+int capsule_routing_fwd(const void* x, const void* w, void* out, void* wt,
+                        void* scratch, int B, int I, int J, int O, int iters,
+                        int cluster, int keep, int device, void* stream) {
+  if (B <= 0 || I <= 0 || J <= 0 || iters <= 0 || cluster < 1 ||
+      cluster > kMaxCluster || cluster > J || !wt || (!keep && !scratch))
     return (int)cudaErrorInvalidValue;
-  cudaError_t se = begin_call(device);
-  if (se != cudaSuccess) return (int)se;
+  cudaError_t e = begin_call(device);
+  if (e != cudaSuccess) return (int)e;
   const float* xf = static_cast<const float*>(x);
   const float* wf = static_cast<const float*>(w);
   float* of = static_cast<float*>(out);
+  float* tf = static_cast<float*>(wt);
+  float* sf = static_cast<float*>(scratch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (O) {
-    case 16: e = launch<16>(xf, wf, of, B, I, J, iters, st); break;
-    case 32: e = launch<32>(xf, wf, of, B, I, J, iters, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const bool k = keep != 0;
+  if (O == 16)
+    e = launch_factored<16>(xf, wf, of, tf, sf, B, I, J, iters, cluster, k,
+                            st);
+  else if (O == 32)
+    e = launch_factored<32>(xf, wf, of, tf, sf, B, I, J, iters, cluster, k,
+                            st);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)e;
 }
 

@@ -45,7 +45,9 @@
 //       which the card holds all B at once (an H100 holds 30 clusters of 4
 //       such blocks, its GPCs leaving SMs over, so that 4 would run in two
 //       waves). At C = 1 or 2 the stashes, c and db live in a per-block
-//       scratch in L2. Each pass computes the exponentials once, into c.
+//       scratch in L2. The forward recompute is K1-G's passes with the
+//       stashes (capsule_common.cuh::factored_forward). Each pass computes
+//       the exponentials once, into c.
 //       Work over (i, j) goes to warps by input capsule (rows) and lanes by
 //       output capsule (columns), so that a row's sum is a warp reduction;
 //       work per output capsule (sums over i, products with W_j) goes to
@@ -97,29 +99,6 @@ using namespace capsule;
 
 // ---- (1) factored form ----------------------------------------------------
 
-// Rows of 8 floats per output capsule ([nj][8]: a, e, t and the stashes of
-// a and y) are two planes of float4: (j, l) at (l / 4) 4 njm + 4 j + l % 4,
-// so that lanes reading consecutive j read consecutive 16-byte words.
-__device__ __forceinline__ void ld_row(const float* p, int njm, int j,
-                                       float (&r)[kL]) {
-  const float4 lo = reinterpret_cast<const float4*>(p)[j];
-  const float4 hi = reinterpret_cast<const float4*>(p)[njm + j];
-  r[0] = lo.x; r[1] = lo.y; r[2] = lo.z; r[3] = lo.w;
-  r[4] = hi.x; r[5] = hi.y; r[6] = hi.z; r[7] = hi.w;
-}
-
-// half h (0: l < 4, 1: l >= 4) of a row of 8
-__device__ __forceinline__ float4 half4(const float (&r)[kL], int h) {
-  return h ? make_float4(r[4], r[5], r[6], r[7])
-           : make_float4(r[0], r[1], r[2], r[3]);
-}
-
-// plane h of row j; each lane of a pair stores one
-__device__ __forceinline__ void st_half(float* p, int njm, int j, int h,
-                                        const float (&r)[kL]) {
-  reinterpret_cast<float4*>(p)[h * njm + j] = half4(r, h);
-}
-
 // The sum of v[0..7] over the warp's 32 lanes: lane L gets component
 // L % 8, by halving the vector at each of three exchanges, then two plain
 // steps (9 shuffles instead of 40; a fixed order).
@@ -137,26 +116,6 @@ __device__ __forceinline__ float warp_sum8(const float (&v)[kL], int lane) {
   float s = (u1 ? c[1] : c[0]) + __shfl_xor_sync(~0u, u1 ? c[0] : c[1], 1);
   s += __shfl_xor_sync(~0u, s, 8);
   return s + __shfl_xor_sync(~0u, s, 16);
-}
-
-// W [J][O][8] as two float4 planes a row o: wt[(2 o + h) J + j] holds
-// W[j][o][4 h .. 4 h + 3], so that lanes reading consecutive j read
-// consecutive 16-byte words (W's own layout puts them 1 KB apart).
-__global__ void w_planes_kernel(const float4* __restrict__ w,
-                                float4* __restrict__ wt, int J, int O) {
-  const int n = 2 * J * O;
-  for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < n;
-       t += gridDim.x * blockDim.x)
-    wt[t] = __ldg(w + (size_t)(t % J) * 2 * O + t / J);
-}
-
-// row o of W_j, j a global output capsule
-__device__ __forceinline__ void ld_w(const float4* __restrict__ wt, int J,
-                                     int o, int j, float (&r)[kL]) {
-  const float4 lo = __ldg(wt + (size_t)2 * o * J + j);
-  const float4 hi = __ldg(wt + (size_t)(2 * o + 1) * J + j);
-  r[0] = lo.x; r[1] = lo.y; r[2] = lo.z; r[3] = lo.w;
-  r[4] = hi.x; r[5] = hi.y; r[6] = hi.z; r[7] = hi.w;
 }
 
 // Where a block's arrays lie, in floats. Shared memory, always: x [I][8] |
@@ -178,7 +137,7 @@ __host__ __device__ inline FactoredLayout factored_layout(int I, int J,
                                                           int R, int C) {
   FactoredLayout f;
   f.njm = (J + C - 1) / C;
-  f.ldp = ((f.njm + 31) & ~31) + 16;
+  f.ldp = factored_ldp(f.njm);
   const size_t n8 = (size_t)kL * f.njm;
   size_t o = 0;
   f.xs = o; o += (size_t)I * kL;
@@ -212,9 +171,8 @@ routing_bwd_factored_cluster_kernel(const float* __restrict__ x,
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int b = blockIdx.x / C;
-  const int j0 = rank * J / C;
-  const int nj = (rank + 1) * J / C - j0;
+  const FactoredSlice sl = factored_slice(rank, J, C);
+  const int b = sl.b, j0 = sl.j0, nj = sl.nj;
   const FactoredLayout f = factored_layout(I, J, R, C);
   const int njm = f.njm, ldp = f.ldp;
   const int tid = threadIdx.x;
@@ -222,7 +180,6 @@ routing_bwd_factored_cluster_kernel(const float* __restrict__ x,
   const int warp = tid >> 5;
   const int h = lane >> 4;  // per-capsule phases: which lane of the pair
   const int K = 2 * R;      // dW factor pairs per sample
-  constexpr int kHalf = O / 2;
   constexpr int kPairStride = kRouteThreads / 2;
   // row loops: two iterations in flight, but one at O = 16, where ptxas
   // spills with two
@@ -253,113 +210,9 @@ routing_bwd_factored_cluster_kernel(const float* __restrict__ x,
   __syncthreads();
 
   int xp = 0;  // exchanges so far: rows alternate between two buffers
-  // ---- forward recompute, stashing a_r, y_r, max_r, 1/Z_r
-  for (int r = 0; r < R; ++r) {
-    float* xw = xch + (xp++ & 1) * 2 * I;
-    // logits x_i . a_j of the slice into c, each row's max over the slice,
-    // then exp(b - max) in place and its sum
-    for (int i = warp; i < I; i += kRouteWarps) {
-      float xi[kL];
-      load8(xs + i * kL, xi);
-      float* row = cb + (size_t)i * ldp;
-      float m = -INFINITY;
-#pragma unroll(kRowUnroll)
-      for (int j = lane; j < nj; j += 32) {
-        float aj[kL];
-        ld_row(acur, njm, j, aj);
-        const float bij = dot8(xi, aj);
-        row[j] = bij;
-        m = fmaxf(m, bij);
-      }
-      m = warp_max(m);
-      float z = 0.f;
-#pragma unroll(kRowUnroll)
-      for (int j = lane; j < nj; j += 32) {
-        const float p = expf(row[j] - m);
-        row[j] = p;
-        z += p;
-      }
-      z = warp_sum(z);
-      if (lane == 0) {
-        xw[i] = m;
-        xw[I + i] = z;
-      }
-    }
-    cluster.sync();
-    // the cluster's statistics, in rank order; c_ij = p_ij kk_i. Thread i
-    // combines row i, its C remote reads issued together.
-    for (int i = tid; i < I; i += kRouteThreads) {
-      float mq[kMaxCluster], zq[kMaxCluster];
-#pragma unroll
-      for (int q = 0; q < kMaxCluster; ++q) {
-        mq[q] = -INFINITY;
-        zq[q] = 0.f;
-        if (q < C) {
-          const float* rw = cluster.map_shared_rank(xw, q);
-          mq[q] = rw[i];
-          zq[q] = rw[I + i];
-        }
-      }
-      float m = -INFINITY, z = 0.f;
-#pragma unroll
-      for (int q = 0; q < kMaxCluster; ++q) m = fmaxf(m, mq[q]);
-#pragma unroll
-      for (int q = 0; q < kMaxCluster; ++q)
-        if (q < C) z = fmaf(zq[q], expf(mq[q] - m), z);
-      const float zi = 1.f / z;
-      mx[r * I + i] = m;
-      zinv[r * I + i] = zi;
-      kk[i] = expf(xw[i] - m) * zi;
-    }
-    __syncthreads();
-    // per output capsule, two lanes each: y_j = sum_i c_ij x_i (even and
-    // odd i), the stashes, then a_j += W_j^T v_j (each lane half of W_j)
-    for (int jb = warp * 16; jb < nj; jb += kPairStride) {
-      const bool valid = jb + (lane & 15) < nj;
-      const int j = min(jb + (lane & 15), nj - 1);
-      float y[kL];
-#pragma unroll
-      for (int l = 0; l < kL; ++l) y[l] = 0.f;
-#pragma unroll 4
-      for (int i = h; i < I; i += 2) {
-        float xi[kL];
-        load8(xs + i * kL, xi);
-        const float c = cb[(size_t)i * ldp + j] * kk[i];
-#pragma unroll
-        for (int l = 0; l < kL; ++l) y[l] = fmaf(c, xi[l], y[l]);
-      }
-#pragma unroll
-      for (int l = 0; l < kL; ++l) y[l] += __shfl_xor_sync(~0u, y[l], 16);
-      float aj[kL];
-      ld_row(acur, njm, j, aj);
-      if (valid) {
-        st_half(sy + (size_t)r * kL * njm, njm, j, h, y);
-        st_half(sa + (size_t)r * kL * njm, njm, j, h, aj);
-      }
-      if (r == R - 1) continue;
-      float n2 = 0.f, tv[kL];
-#pragma unroll
-      for (int l = 0; l < kL; ++l) tv[l] = 0.f;
-#pragma unroll 4
-      for (int q = 0; q < kHalf; ++q) {
-        float wo[kL];
-        ld_w(wt, J, h * kHalf + q, j0 + j, wo);
-        const float so = dot8(wo, y);
-        n2 = fmaf(so, so, n2);
-#pragma unroll
-        for (int l = 0; l < kL; ++l) tv[l] = fmaf(so, wo[l], tv[l]);
-      }
-      n2 += __shfl_xor_sync(~0u, n2, 16);
-      const float g = squash_scale(n2);
-#pragma unroll
-      for (int l = 0; l < kL; ++l) {
-        tv[l] += __shfl_xor_sync(~0u, tv[l], 16);
-        aj[l] = fmaf(g, tv[l], aj[l]);
-      }
-      if (valid) st_half(acur, njm, j, h, aj);
-    }
-    __syncthreads();
-  }
+  // ---- forward recompute (K1-G's passes), stashing a_r, y_r, max_r, 1/Z_r
+  factored_forward<O, true>(cluster, sl, wt, xs, acur, cb, kk, xch, xp, sa,
+                            sy, mx, zinv, nullptr, I, J, C, R);
 
   // ---- reverse
   for (int r = R - 1; r >= 0; --r) {
@@ -562,14 +415,11 @@ cudaError_t launch_factored(const float* x, const float* w, const float* dout,
                             float* fp, float* fq, int B, int I, int J, int R,
                             int C, bool keep, cudaStream_t stream) {
   const FactoredLayout f = factored_layout(I, J, R, C);
-  float4* wt4 = reinterpret_cast<float4*>(wt);
-  w_planes_kernel<<<(2 * J * O + 255) / 256, 256, 0, stream>>>(
-      reinterpret_cast<const float4*>(w), wt4, J, O);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_w_planes(w, wt, J, O, stream);
   if (e != cudaSuccess) return e;
   e = launch_cluster(routing_bwd_factored_cluster_kernel<O>, B, C,
                      sizeof(float) * (f.small + (keep ? f.big : 0)), stream,
-                     x, (const float4*)wt4, dout, dx, scratch,
+                     x, (const float4*)wt, dout, dx, scratch,
                      dw ? fp : nullptr, dw ? fq : nullptr, I, J, R,
                      (int)keep);
   if (e != cudaSuccess || !dw) return e;
@@ -752,31 +602,15 @@ int capsule_routing_bwd_max_clusters(int I, int J, int O, int R, int cluster,
   if (begin_call(device) != cudaSuccess) return 0;
   const FactoredLayout f = factored_layout(I, J, R, cluster);
   const size_t smem = sizeof(float) * (f.small + (keep ? f.big : 0));
-  cudaError_t e = cudaErrorInvalidValue;
-  int n = 0;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster);
-  cfg.blockDim = dim3(kRouteThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-#define MAX_CLUSTERS(OL)                                                     \
-  if (O == OL &&                                                             \
-      cudaFuncSetAttribute(routing_bwd_factored_cluster_kernel<OL>,          \
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,      \
-                           (int)smem) == cudaSuccess)                        \
-    e = cudaOccupancyMaxActiveClusters(                                      \
-        &n, routing_bwd_factored_cluster_kernel<OL>, &cfg);
-  MAX_CLUSTERS(16)
-  MAX_CLUSTERS(32)
-#undef MAX_CLUSTERS
-  cudaGetLastError();
-  return e == cudaSuccess ? n : 0;
+  switch (O) {
+    case 16:
+      return max_active_clusters(routing_bwd_factored_cluster_kernel<16>,
+                                 cluster, smem);
+    case 32:
+      return max_active_clusters(routing_bwd_factored_cluster_kernel<32>,
+                                 cluster, smem);
+    default: return 0;
+  }
 }
 
 // floats of scratch one block needs where its stashes, c and db do not

@@ -27,7 +27,7 @@ from torch import nn
 from ..nn.blocks import (Block3x3LeakyRelu, Conv4x4s4, Dense, DownBlock,
                          EncodeBy16)
 from ..ops.capsule import CapsuleLinear
-from .generator import compute_dtype
+from .generator import bn_dtype, compute_dtype
 
 
 class _SigmoidF32(nn.Module):
@@ -58,7 +58,8 @@ class JointDNet(nn.Module):
                  entity_dim: int = 200, imsize: int = 64,
                  use_cap: bool = False, num_iterations: int = 3,
                  routing: str = 'dynamic', use_kernel: bool = False,
-                 dtype: torch.dtype = torch.float32, kernel_dw: bool = False):
+                 dtype: torch.dtype = torch.float32, kernel_dw: bool = False,
+                 bn_dtype: torch.dtype = torch.float32):
         super().__init__()
         if imsize not in (64, 128):
             raise NotImplementedError(
@@ -67,13 +68,13 @@ class JointDNet(nn.Module):
         self.ndf = ndf
         self.ef_dim = ef_dim
         self.use_cap = use_cap
-        self.img_code_s16 = EncodeBy16(ndf, dtype)
+        self.img_code_s16 = EncodeBy16(ndf, dtype, bn_dtype)
         if imsize == 128:
-            self.img_code_s32 = DownBlock(ndf * 8, ndf * 16, dtype)
+            self.img_code_s32 = DownBlock(ndf * 8, ndf * 16, dtype, bn_dtype)
             self.img_code_s32_1 = Block3x3LeakyRelu(ndf * 16, ndf * 8, dtype,
-                                                    kernel_dw)
+                                                    kernel_dw, bn_dtype)
         self.jointConv = Block3x3LeakyRelu(ndf * 8 + ef_dim, ndf * 8, dtype,
-                                           kernel_dw)
+                                           kernel_dw, bn_dtype)
         self.logits = _logit_head(ndf * 8, dtype)
         self.uncond_logits = _logit_head(ndf * 8, dtype)
         if use_cap:
@@ -145,7 +146,8 @@ def build_discriminators(cfg, cond_width: Optional[int] = None
         imsize=size, use_cap=cfg.TRAIN.D_CAPSULE,
         num_iterations=cfg.TPU_CAPSULE_ITERATIONS,
         routing=cfg.TPU_CAPSULE_ROUTING, use_kernel=cfg.TPU_CAPSULE_PALLAS,
-        dtype=compute_dtype(cfg), kernel_dw=bool(cfg.TPU_PALLAS_DW))
+        dtype=compute_dtype(cfg), kernel_dw=bool(cfg.TPU_PALLAS_DW),
+        bn_dtype=bn_dtype(cfg))
         for size in cfg.branch_sizes()]
 
 

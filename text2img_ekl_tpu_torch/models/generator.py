@@ -49,11 +49,11 @@ class _UpStack(nn.Module):
     ``h_net1.upsample1..4``."""
 
     def _make_up(self, ngf: int, dtype: torch.dtype, fused_bn_glu: bool,
-                 kernel_dw: bool) -> None:
+                 kernel_dw: bool, bn_dtype: torch.dtype) -> None:
         for k in range(1, 5):
             setattr(self, 'upsample%d' % k, UpBlock(
                 ngf // 2 ** (k - 1), ngf // 2 ** k, dtype, fused_bn_glu,
-                kernel_dw))
+                kernel_dw, bn_dtype))
 
     def _up(self, x: torch.Tensor) -> torch.Tensor:
         x = self.upsample1(x)
@@ -67,13 +67,15 @@ class CondInitStageG(_UpStack):
 
     def __init__(self, ngf: int, in_dim: int,
                  dtype: torch.dtype = torch.float32,
-                 fused_bn_glu: bool = False, kernel_dw: bool = False):
+                 fused_bn_glu: bool = False, kernel_dw: bool = False,
+                 bn_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.ngf = ngf
         self.fc = nn.Sequential(Dense(in_dim, ngf * 4 * 4 * 2, bias=False,
                                       dtype=dtype),
-                                BatchNorm(ngf * 4 * 4 * 2), GLU(dtype))
-        self._make_up(ngf, dtype, fused_bn_glu, kernel_dw)
+                                BatchNorm(ngf * 4 * 4 * 2, bn_dtype=bn_dtype),
+                                GLU(dtype))
+        self._make_up(ngf, dtype, fused_bn_glu, kernel_dw, bn_dtype)
 
     def forward(self, c_code: torch.Tensor,
                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -91,7 +93,8 @@ class CondInitStageGWithCap(_UpStack):
     def __init__(self, ngf: int, num_iterations: int = 3,
                  routing: str = 'dynamic', use_kernel: bool = False,
                  dtype: torch.dtype = torch.float32,
-                 fused_bn_glu: bool = False, kernel_dw: bool = False):
+                 fused_bn_glu: bool = False, kernel_dw: bool = False,
+                 bn_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.ngf = ngf
         self.fc_cap = nn.Sequential(
@@ -100,8 +103,9 @@ class CondInitStageGWithCap(_UpStack):
                           out_length=4 * 4 * 2,
                           num_iterations=num_iterations, routing=routing,
                           use_kernel=use_kernel),
-            _Flatten(), BatchNorm(ngf * 4 * 4 * 2), GLU(dtype))
-        self._make_up(ngf, dtype, fused_bn_glu, kernel_dw)
+            _Flatten(), BatchNorm(ngf * 4 * 4 * 2, bn_dtype=bn_dtype),
+            GLU(dtype))
+        self._make_up(ngf, dtype, fused_bn_glu, kernel_dw, bn_dtype)
 
     def forward(self, c_code: torch.Tensor,
                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -122,18 +126,17 @@ class NextStageG(nn.Module):
 
     def __init__(self, ngf: int, ef_dim: int, num_residual: int = 2,
                  scale: int = 2, dtype: torch.dtype = torch.float32,
-                 fused_bn_glu: bool = False, kernel_dw: bool = False):
+                 fused_bn_glu: bool = False, kernel_dw: bool = False,
+                 bn_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
-        self.jointConv = Block3x3Relu(ngf + ef_dim, ngf, dtype, fused_bn_glu,
-                                      kernel_dw)
+        flags = (dtype, fused_bn_glu, kernel_dw, bn_dtype)
+        self.jointConv = Block3x3Relu(ngf + ef_dim, ngf, *flags)
         self.residual = nn.ModuleList(
-            ResBlock(ngf, dtype, fused_bn_glu, kernel_dw)
-            for _ in range(num_residual))
-        self.upsample = UpBlock(ngf, ngf // 2, dtype, fused_bn_glu, kernel_dw)
+            ResBlock(ngf, *flags) for _ in range(num_residual))
+        self.upsample = UpBlock(ngf, ngf // 2, *flags)
         if scale == 4:
-            self.upsample2 = UpBlock(ngf // 2, ngf // 4, dtype, fused_bn_glu,
-                                     kernel_dw)
+            self.upsample2 = UpBlock(ngf // 2, ngf // 4, *flags)
 
     def forward(self, h_code: torch.Tensor,
                 c_code: torch.Tensor) -> torch.Tensor:
@@ -178,8 +181,8 @@ class CondGNetCatZCA(nn.Module):
     In eval mode with ``use_cls_prior`` (model.py:485-494) the class code
     is a supplied ``cls_prior`` or a standard normal draw from
     ``generator``; ``eps``/``eps_cls`` inject the CA/VC reparameterisation
-    draws. ``fused_bn_glu`` and ``kernel_dw`` reach every block (see
-    ``nn.blocks``).
+    draws. ``fused_bn_glu``, ``kernel_dw`` and ``bn_dtype`` reach every
+    block (see ``nn.blocks``).
     """
 
     def __init__(self, sen_dim: int = 1024, cls_dim: int = 200,
@@ -189,7 +192,8 @@ class CondGNetCatZCA(nn.Module):
                  use_cls_prior: bool = False, num_iterations: int = 3,
                  routing: str = 'dynamic', use_kernel: bool = False,
                  dtype: torch.dtype = torch.float32,
-                 fused_bn_glu: bool = False, kernel_dw: bool = False):
+                 fused_bn_glu: bool = False, kernel_dw: bool = False,
+                 bn_dtype: torch.dtype = torch.float32):
         super().__init__()
         if not 1 <= branch_num <= 3:
             raise ValueError('BRANCH_NUM must be 1, 2 or 3')
@@ -198,10 +202,11 @@ class CondGNetCatZCA(nn.Module):
         self.cat = cat
         self.use_cls_prior = use_cls_prior
         self.ca_net1 = CANet(sen_dim, ef_dim, dtype)
-        self.vc_net2 = VCNet(z_dim + cls_dim, manifd_dim, dtype)
+        self.vc_net2 = VCNet(z_dim + cls_dim, manifd_dim, dtype, bn_dtype)
         c_dim = ef_dim + manifd_dim if cat == 'concat' else ef_dim
         ngf = gf_dim * 16
-        flags = dict(fused_bn_glu=fused_bn_glu, kernel_dw=kernel_dw)
+        flags = dict(fused_bn_glu=fused_bn_glu, kernel_dw=kernel_dw,
+                     bn_dtype=bn_dtype)
         if use_cap:
             self.h_net1 = CondInitStageGWithCap(
                 ngf, num_iterations, routing, use_kernel, dtype, **flags)
@@ -257,11 +262,19 @@ def compute_dtype(cfg) -> torch.dtype:
         else torch.float32
 
 
+def bn_dtype(cfg) -> torch.dtype:
+    """BatchNorm's output type from TPU_BN_DTYPE, as the JAX package's
+    ``_apply_bn_dtype_policy`` reads it for G and D alike."""
+    return torch.bfloat16 if cfg.TPU_BN_DTYPE == 'bfloat16' \
+        else torch.float32
+
+
 def build_generator(cfg, train_flag: bool = True) -> CondGNetCatZCA:
     """The generator the split-z CA trainers build for ``cfg``
     (cub_trainer_splitz_cap_ca.py:113-135), in train and in eval builds
     alike with the config's kernel switches (TPU_FUSED_BN_GLU: K3,
-    TPU_PALLAS_DW: K4). The other families are not ported yet."""
+    TPU_PALLAS_DW: K4) and BatchNorm dtype (TPU_BN_DTYPE). The other
+    families are not ported yet."""
     if not cfg.GAN.B_CONDITION:
         raise NotImplementedError(
             'GNet (B_CONDITION False) is not ported yet: ROADMAP.md M12')
@@ -284,4 +297,4 @@ def build_generator(cfg, train_flag: bool = True) -> CondGNetCatZCA:
         num_iterations=cfg.TPU_CAPSULE_ITERATIONS,
         routing=cfg.TPU_CAPSULE_ROUTING, use_kernel=cfg.TPU_CAPSULE_PALLAS,
         dtype=compute_dtype(cfg), fused_bn_glu=bool(cfg.TPU_FUSED_BN_GLU),
-        kernel_dw=bool(cfg.TPU_PALLAS_DW))
+        kernel_dw=bool(cfg.TPU_PALLAS_DW), bn_dtype=bn_dtype(cfg))

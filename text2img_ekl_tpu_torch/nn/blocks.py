@@ -10,8 +10,11 @@ down block is ``(conv, BN, LeakyReLU)`` -> ``.0.weight`` / ``.1.*``.
 Numerics follow the JAX package: bias-free 3x3 and 4x4 convs and linears
 run in the compute ``dtype`` (float32 parameters cast at the call),
 BatchNorm normalizes in float32 (eps 1e-5, scale init N(1, 0.02)) with
-flax's statistics, GLU and LeakyReLU run on the float32 BN output and cast
-back to ``dtype``. Orthogonal init as the reference's ``weights_init``.
+flax's statistics and casts its output to ``bn_dtype`` (the config's
+``TPU_BN_DTYPE``, bfloat16 or float32), where flax's ``BatchNorm(dtype=)``
+casts it. GLU, LeakyReLU and a residual block's sum then run in the BN
+output's type, as JAX promotes them, and cast back to ``dtype``.
+Orthogonal init as the reference's ``weights_init``.
 
 Two switches of the JAX package are constructor flags here:
 ``fused_bn_glu`` (``TPU_FUSED_BN_GLU``) makes every 4-D BN -> GLU tail one
@@ -60,7 +63,9 @@ BN_MOMENTUM = 0.9
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over dim 1 of [B, C] or [B, C, H, W], computed in float32.
+    """BatchNorm over dim 1 of [B, C] or [B, C, H, W], computed in float32,
+    its output cast to ``bn_dtype`` (flax's ``_normalize`` casts its float32
+    result last).
 
     Train mode normalizes with the batch's statistics as flax computes them
     (mean and E[x^2] - mean^2 over every axis but the channel, the biased
@@ -74,9 +79,11 @@ class BatchNorm(nn.Module):
     is never read (``io_utils.weights`` drops it from reference files).
     """
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 bn_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.eps = eps
+        self.bn_dtype = bn_dtype
         self.update_running_stats = True
         self.weight = nn.Parameter(torch.empty(num_features))
         self.bias = nn.Parameter(torch.empty(num_features))
@@ -111,19 +118,21 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if not self.training:
             return F.batch_norm(xf, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
+                                self.weight, self.bias, False, 0.0,
+                                self.eps).to(self.bn_dtype)
         mean, var = self.batch_statistics(xf)
         var = torch.clamp(var, min=0.0)
         self.update_running(mean, var)
         shape = (1, -1) + (1,) * (x.dim() - 2)
         scale = torch.rsqrt(var + self.eps) * self.weight
-        return (xf - mean.view(shape)) * scale.view(shape) + \
-            self.bias.view(shape)
+        return ((xf - mean.view(shape)) * scale.view(shape) +
+                self.bias.view(shape)).to(self.bn_dtype)
 
 
 class FusedBatchNormGLU(BatchNorm):
     """BatchNorm over dim 1 of [B, 2C, H, W] and the GLU after it as one
-    fused pass (``fused_bn_glu``, kernel K3 on the card), then a cast to
+    fused pass (``fused_bn_glu``, kernel K3 on the card), the affine in
+    ``bn_dtype`` as the JAX module passes its ``BN_DTYPE``, then a cast to
     the compute dtype. Counterpart of the JAX package's ``FusedBatchNormGLU``
     (``text2img_ekl_tpu/nn/blocks.py:143-170``), with ``BatchNorm``'s
     parameters and buffers. Train mode takes flax's float32 statistics,
@@ -131,8 +140,9 @@ class FusedBatchNormGLU(BatchNorm):
     and folds them into the running statistics as ``BatchNorm`` does; eval
     mode uses the running statistics."""
 
-    def __init__(self, num_features: int, dtype: torch.dtype = torch.float32):
-        super().__init__(num_features)
+    def __init__(self, num_features: int, dtype: torch.dtype = torch.float32,
+                 bn_dtype: torch.dtype = torch.float32):
+        super().__init__(num_features, bn_dtype=bn_dtype)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -142,15 +152,16 @@ class FusedBatchNormGLU(BatchNorm):
             mean, var = self.batch_statistics(x)
             self.update_running(mean, var)
         return bn_glu_op.fused_bn_glu(x.contiguous(), mean, var, self.weight,
-                                      self.bias).to(self.dtype)
+                                      self.bias, self.bn_dtype).to(self.dtype)
 
 
-def bn_glu_tail(planes: int, dtype: torch.dtype, fused: bool):
+def bn_glu_tail(planes: int, dtype: torch.dtype, fused: bool,
+                bn_dtype: torch.dtype = torch.float32):
     """The (BN, GLU) slots of a block's tail: the plain pair, or the fused
     module and an identity (same ``state_dict`` keys)."""
     if fused:
-        return [FusedBatchNormGLU(planes, dtype), nn.Identity()]
-    return [BatchNorm(planes), GLU(dtype)]
+        return [FusedBatchNormGLU(planes, dtype, bn_dtype), nn.Identity()]
+    return [BatchNorm(planes, bn_dtype=bn_dtype), GLU(dtype)]
 
 
 @contextlib.contextmanager
@@ -210,10 +221,12 @@ class UpBlock(nn.Sequential):
 
     def __init__(self, in_planes: int, out_planes: int,
                  dtype: torch.dtype = torch.float32,
-                 fused_bn_glu: bool = False, kernel_dw: bool = False):
+                 fused_bn_glu: bool = False, kernel_dw: bool = False,
+                 bn_dtype: torch.dtype = torch.float32):
         super().__init__(nn.Upsample(scale_factor=2, mode='nearest'),
                          Conv3x3(in_planes, out_planes * 2, dtype, kernel_dw),
-                         *bn_glu_tail(out_planes * 2, dtype, fused_bn_glu))
+                         *bn_glu_tail(out_planes * 2, dtype, fused_bn_glu,
+                                      bn_dtype))
 
 
 class Block3x3Relu(nn.Sequential):
@@ -221,37 +234,49 @@ class Block3x3Relu(nn.Sequential):
 
     def __init__(self, in_planes: int, out_planes: int,
                  dtype: torch.dtype = torch.float32,
-                 fused_bn_glu: bool = False, kernel_dw: bool = False):
+                 fused_bn_glu: bool = False, kernel_dw: bool = False,
+                 bn_dtype: torch.dtype = torch.float32):
         super().__init__(Conv3x3(in_planes, out_planes * 2, dtype, kernel_dw),
-                         *bn_glu_tail(out_planes * 2, dtype, fused_bn_glu))
+                         *bn_glu_tail(out_planes * 2, dtype, fused_bn_glu,
+                                      bn_dtype))
 
 
 class ResBlock(nn.Module):
-    """conv-BN-GLU-conv-BN + skip (model.py:107-123)."""
+    """conv-BN-GLU-conv-BN + skip (model.py:107-123); the skip is added in
+    the BN output's type, as JAX adds it."""
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
-                 fused_bn_glu: bool = False, kernel_dw: bool = False):
+                 fused_bn_glu: bool = False, kernel_dw: bool = False,
+                 bn_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.block = nn.Sequential(
             Conv3x3(channels, channels * 2, dtype, kernel_dw),
-            *bn_glu_tail(channels * 2, dtype, fused_bn_glu),
+            *bn_glu_tail(channels * 2, dtype, fused_bn_glu, bn_dtype),
             Conv3x3(channels, channels, dtype, kernel_dw),
-            BatchNorm(channels))
+            BatchNorm(channels, bn_dtype=bn_dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (self.block(x) + x.float()).to(self.dtype)
+        out = self.block(x)
+        return (out + x.to(out.dtype)).to(self.dtype)
+
+
+# 0.2 rounded to bfloat16, as JAX's ``0.2 * x`` rounds its weakly typed
+# constant on a bfloat16 x
+_BF16_SLOPE = float(torch.tensor(0.2, dtype=torch.bfloat16))
 
 
 class LeakyReLU(nn.Module):
-    """LeakyReLU(0.2), then a cast to the compute dtype."""
+    """LeakyReLU(0.2) in its input's type, then a cast to the compute
+    dtype."""
 
     def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.leaky_relu(x, 0.2).to(self.dtype)
+        slope = _BF16_SLOPE if x.dtype == torch.bfloat16 else 0.2
+        return F.leaky_relu(x, slope).to(self.dtype)
 
 
 class Conv4x4s2(nn.Conv2d):
@@ -292,9 +317,11 @@ class Block3x3LeakyRelu(nn.Sequential):
     """conv3x3 -> BN -> LeakyReLU(0.2) (model.py:812-818)."""
 
     def __init__(self, in_planes: int, out_planes: int,
-                 dtype: torch.dtype = torch.float32, kernel_dw: bool = False):
+                 dtype: torch.dtype = torch.float32, kernel_dw: bool = False,
+                 bn_dtype: torch.dtype = torch.float32):
         super().__init__(Conv3x3(in_planes, out_planes, dtype, kernel_dw),
-                         BatchNorm(out_planes), LeakyReLU(dtype))
+                         BatchNorm(out_planes, bn_dtype=bn_dtype),
+                         LeakyReLU(dtype))
 
 
 class DownBlock(nn.Sequential):
@@ -302,9 +329,11 @@ class DownBlock(nn.Sequential):
     (model.py:822-828)."""
 
     def __init__(self, in_planes: int, out_planes: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 bn_dtype: torch.dtype = torch.float32):
         super().__init__(Conv4x4s2(in_planes, out_planes, dtype),
-                         BatchNorm(out_planes), LeakyReLU(dtype))
+                         BatchNorm(out_planes, bn_dtype=bn_dtype),
+                         LeakyReLU(dtype))
 
 
 class EncodeBy16(nn.Sequential):
@@ -312,9 +341,11 @@ class EncodeBy16(nn.Sequential):
     without BatchNorm (model.py:832-850). Flat like the reference's
     Sequential: convs at 0, 2, 5, 8 and BatchNorms at 3, 6, 9."""
 
-    def __init__(self, ndf: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, ndf: int, dtype: torch.dtype = torch.float32,
+                 bn_dtype: torch.dtype = torch.float32):
         layers = [Conv4x4s2(3, ndf, dtype), LeakyReLU(dtype)]
         for k in (1, 2, 4):
             layers += [Conv4x4s2(ndf * k, ndf * k * 2, dtype),
-                       BatchNorm(ndf * k * 2), LeakyReLU(dtype)]
+                       BatchNorm(ndf * k * 2, bn_dtype=bn_dtype),
+                       LeakyReLU(dtype)]
         super().__init__(*layers)

@@ -49,13 +49,14 @@ class VCNet(nn.Module):
     """Variational conditional-manifold encoder over concat(noise, cond)."""
 
     def __init__(self, in_dim: int, manifd_dim: int = 128,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 bn_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.fc1 = Dense(in_dim, 512, dtype=dtype)
-        self.bn_fc1 = BatchNorm(512)
+        self.bn_fc1 = BatchNorm(512, bn_dtype=bn_dtype)
         self.fc2 = Dense(512, 256, dtype=dtype)
-        self.bn_fc2 = BatchNorm(256)
+        self.bn_fc2 = BatchNorm(256, bn_dtype=bn_dtype)
         self.fc31 = Dense(256, manifd_dim, dtype=dtype)
         self.fc32 = Dense(256, manifd_dim, dtype=dtype)
 

@@ -9,10 +9,12 @@ kernel on Hopper and what the design does about it:
 - in_length 8 (the generator head): the factored forward
   (``csrc/capsule_routing.cu``, ``capsule_routing_fwd``, K1-G) and backward
   (``csrc/capsule_routing_bwd.cu``, ``capsule_routing_bwd``, K2-G), in which
-  the 6.3 MB-per-sample vote tensor never exists. K2-G routes each sample on
-  a cluster of blocks that split the output capsules
-  (``factored_bwd_plan``); ``factored_bwd_reference`` is its algorithm,
-  slices and rank-order sums included, in plain PyTorch;
+  the 6.3 MB-per-sample vote tensor never exists. Both route each sample on
+  a cluster of blocks that split the output capsules, through one forward
+  pass (``csrc/capsule_common.cuh::factored_forward``, which K2-G runs with
+  stashes), as ``factored_fwd_plan`` and ``factored_bwd_plan`` choose;
+  ``factored_fwd_reference`` and ``factored_bwd_reference`` are their
+  algorithms, slices and rank-order sums included, in plain PyTorch;
 - any other in_length (the discriminator class head, 512): the vote tensor
   is materialised by a float32-faithful 3xTF32 product on the tensor cores
   (``csrc/gemm_tf32x3.cuh``), then routed (``capsule_routing_votes_fwd``,
@@ -53,12 +55,18 @@ CLUSTER_SIZES = (1, 2, 4, 8)
 # K2-G's blocks hold one per SM, and a cluster's blocks must share a GPC of
 # the card: clusters of 3 pack where those of 4 leave SMs over
 FACTORED_CLUSTER_SIZES = (1, 2, 3, 4, 8)
+# K1-G's cluster where no cluster holds the batch in one wave (the
+# sampler's B=320): the size that the card's sweep found fastest (PERF.md
+# §6): a block takes about 21 us plus 0.06 us a capsule of its slice, so
+# fewer, larger blocks win
+FACTORED_FWD_MULTI_WAVE = 2
 GEMM_BM, GEMM_BN, GEMM_BK = 128, 104, 32
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _fns = None
 _sms = {}
 _clusters = {}
+_fwd_plans = {}
 
 
 def _kernels():
@@ -75,8 +83,14 @@ def _kernels():
 
         size = ctypes.c_size_t
         _fns = dict(
-            fwd=fn(fwd_lib, 'capsule_routing_fwd', [_P] * 3 + [_I] * 6 + [_P]),
-            fwd_smem=fn(fwd_lib, 'capsule_routing_smem_bytes', [_I] * 2, size),
+            fwd=fn(fwd_lib, 'capsule_routing_fwd',
+                   [_P] * 5 + [_I] * 8 + [_P]),
+            fwd_smem=fn(fwd_lib, 'capsule_routing_fwd_smem_bytes', [_I] * 4,
+                        size),
+            fwd_scratch=fn(fwd_lib, 'capsule_routing_fwd_scratch_floats',
+                           [_I] * 3, size),
+            fwd_clusters=fn(fwd_lib, 'capsule_routing_fwd_max_clusters',
+                            [_I] * 6),
             fwd_votes=fn(fwd_lib, 'capsule_routing_votes_fwd',
                          [_P] * 4 + [_I] * 9 + [_P]),
             fwd_votes_smem=fn(fwd_lib, 'capsule_routing_votes_smem_bytes',
@@ -162,21 +176,135 @@ def _shapes(x: torch.Tensor, weight: torch.Tensor, num_iterations: int,
     return bsz, in_caps, in_len, out_caps, out_len
 
 
+class FactoredFwdPlan(NamedTuple):
+    """How K1-G runs one call: W's planes, then the routing on ``cluster``
+    blocks of 512 threads per sample (``blocks`` in all), rank r
+    owning the output capsules ``slices[r]`` = [j0, j1), with
+    ``smem_bytes`` of shared memory per block; its couplings stay in shared
+    memory where ``in_smem``, else in a scratch of ``scratch_numel``
+    floats."""
+    cluster: int
+    slices: Tuple[Tuple[int, int], ...]
+    blocks: int
+    smem_bytes: int
+    in_smem: bool
+    scratch_numel: int
+
+
+def _factored_fwd_floats(I: int, J: int, cluster: int) -> Tuple[int, int]:
+    """(floats always in shared memory, floats in shared memory or the
+    scratch) per block of K1-G (``csrc/capsule_routing.cu::
+    factored_fwd_layout``): x [I][8], a [nj][8], a row scale [I] and two
+    exchange rows of 2 I floats, rounded up to whole float4; the couplings
+    [I][ldp]; nj = ceil(J / cluster), ldp = nj rounded up to 32, plus 16."""
+    nj = -(-J // cluster)
+    ldp = -(-nj // 32) * 32 + 16
+    small = I * FACTORED_IN_LENGTH + FACTORED_IN_LENGTH * nj + 5 * I
+    return -(-small // 4) * 4, I * ldp
+
+
+def factored_fwd_smem_bytes(I: int, J: int, cluster: int,
+                            in_smem: bool) -> int:
+    """Shared memory per block of K1-G's routing."""
+    small, big = _factored_fwd_floats(I, J, cluster)
+    return 4 * (small + (big if in_smem else 0))
+
+
+def _factored_fwd_plan_at(B, I, J, cluster) -> FactoredFwdPlan:
+    cluster = min(cluster, J)
+    small, big = _factored_fwd_floats(I, J, cluster)
+    keep = 4 * (small + big) <= MAX_SMEM_BYTES
+    smem = factored_fwd_smem_bytes(I, J, cluster, keep)
+    _check_smem(smem, 'the forward of %d in / %d out capsules at a cluster '
+                'of %d' % (I, J, cluster))
+    return FactoredFwdPlan(cluster, _slices(J, cluster), B * cluster, smem,
+                           keep, 0 if keep else B * cluster * big)
+
+
+def factored_fwd_plan(B: int, I: int, J: int, R: int, sms: int = 132,
+                      cluster: Optional[int] = None,
+                      max_clusters: Optional[Callable[[int, bool], int]] = None
+                      ) -> FactoredFwdPlan:
+    """K1-G's launch plan for x [B, I, 8], weight [J, O, 8] and R routing
+    passes on a card of ``sms`` SMs: the couplings in shared memory where
+    they fit, else in a scratch; raises ValueError where even the rest does
+    not fit. ``cluster`` (one of ``FACTORED_CLUSTER_SIZES``, at most J)
+    where given. Else, as ``factored_bwd_plan``: the largest cluster whose B
+    clusters all run at once, B x cluster blocks one per SM, no more than the
+    ``max_clusters(cluster, in_smem)`` that the card holds at once
+    where that function is given and knows (3 at the flagship's B = 32 on
+    an H100, 96 blocks of 341-342 output capsules); where no cluster holds
+    the batch in one wave (the sampler's B = 320), the card's fastest in
+    its sweep, ``FACTORED_FWD_MULTI_WAVE``. R sets no size: the forward
+    keeps no stashes."""
+    if R < 1:
+        raise ValueError('factored_fwd_plan: R >= 1 routing passes')
+    if cluster is not None:
+        if cluster not in FACTORED_CLUSTER_SIZES:
+            raise ValueError('factored_fwd_plan: cluster %d not in %s'
+                             % (cluster, FACTORED_CLUSTER_SIZES))
+        return _factored_fwd_plan_at(B, I, J, cluster)
+    for c in sorted(FACTORED_CLUSTER_SIZES, reverse=True)[:-1]:
+        if B * c > sms:
+            continue
+        p = _factored_fwd_plan_at(B, I, J, c)
+        held = max_clusters(p.cluster, p.in_smem) if max_clusters else 0
+        if held <= 0 or held >= B:
+            return p
+    return _factored_fwd_plan_at(B, I, J, FACTORED_FWD_MULTI_WAVE)
+
+
+def fwd_card_clusters(device: torch.device, I: int, J: int, O: int
+                      ) -> Callable[[int, bool], int]:
+    """max_clusters for ``factored_fwd_plan``: what the card reports
+    (``capsule_routing_fwd_max_clusters``), asked once per shape."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+
+    def held(cluster: int, in_smem: bool) -> int:
+        key = ('fwd', index, I, J, O, cluster, in_smem)
+        if key not in _clusters:
+            _clusters[key] = _kernels()['fwd_clusters'](
+                I, J, O, cluster, int(in_smem), index)
+        return _clusters[key]
+    return held
+
+
 def routing_fwd_factored(x: torch.Tensor, weight: torch.Tensor,
-                         num_iterations: int) -> torch.Tensor:
-    """K1, factored form: x [B, in, 8], weight [out, out_length, 8] ->
-    [B, out, out_length], on the card."""
+                         num_iterations: int,
+                         plan: Optional[FactoredFwdPlan] = None
+                         ) -> torch.Tensor:
+    """K1-G, factored form: x [B, in, 8], weight [out, out_length, 8] ->
+    [B, out, out_length], on the card, run as ``plan`` says (default:
+    ``factored_fwd_plan`` for this card)."""
     bsz, in_caps, _, out_caps, out_len = _shapes(x, weight, num_iterations)
     out = torch.empty((bsz, out_caps, out_len), device=x.device,
                       dtype=torch.float32)
     if bsz == 0:
         return out
+    if plan is None:  # the card's plan for this shape, made once
+        key = (x.device.index, bsz, in_caps, out_caps, out_len,
+               num_iterations)
+        if key not in _fwd_plans:
+            _fwd_plans[key] = factored_fwd_plan(
+                bsz, in_caps, out_caps, num_iterations, _sm_count(x.device),
+                max_clusters=fwd_card_clusters(x.device, in_caps, out_caps,
+                                               out_len))
+        plan = _fwd_plans[key]
+    if plan.blocks != bsz * plan.cluster or plan.slices[-1][1] != out_caps:
+        raise ValueError('capsule_routing: %s does not fit x %s, weight %s'
+                         % (plan, tuple(x.shape), tuple(weight.shape)))
     k = _kernels()
-    _check_smem(k['fwd_smem'](in_caps, out_caps), '%d in / %d out capsules'
-                % (in_caps, out_caps))
-    _check_launch(k['fwd'](x.data_ptr(), weight.data_ptr(), out.data_ptr(),
-                           bsz, in_caps, out_caps, out_len, num_iterations,
-                           x.device.index, _stream(x)), 'capsule_routing_fwd')
+    planes = torch.empty_like(weight)  # W's rows as float4 planes
+    scratch = None
+    if not plan.in_smem:
+        scratch = torch.empty(plan.scratch_numel, device=x.device,
+                              dtype=torch.float32)
+    _check_launch(k['fwd'](
+        x.data_ptr(), weight.data_ptr(), out.data_ptr(), planes.data_ptr(),
+        _ptr(scratch), bsz, in_caps, out_caps, out_len, num_iterations,
+        plan.cluster, int(plan.in_smem), x.device.index, _stream(x)),
+        'capsule_routing_fwd')
     routing_fwd_factored.launches += 1
     return out
 
@@ -643,30 +771,16 @@ def votes_fwd_reference(x: torch.Tensor, weight: torch.Tensor,
                            num_iterations)
 
 
-def factored_bwd_reference(x: torch.Tensor, weight: torch.Tensor,
-                           dv: torch.Tensor, num_iterations: int,
-                           cluster: int = 1, need_dx: bool = True,
-                           need_dw: bool = True):
-    """K2-G's algorithm in plain PyTorch, for x [B, I, 8] and weight [J, O,
-    8]: the output capsules split into ``cluster`` slices as
-    ``factored_bwd_plan`` splits them, the votes never formed. Forward: each
-    slice's (max, sum of exp) of every logit row, combined over the slices
-    in rank order, the couplings c = exp(b - max_slice) exp(max_slice -
-    max) / sum, y_j = sum_i c_ij x_i, a_j += W_j^T v_j; the a_j and y_j of
-    every pass stashed. Reverse, per pass: ds_j through the squash, e_j =
-    W_j^T ds_j, the couplings recomputed, rho_i = sum_j c_ij x_i . e_j
-    summed over the slices in rank order, the logit gradient db, each
-    slice's part of dx and the previous pass's dv_j = W_j z_j with z_j =
-    sum_i db_ij x_i; dx summed over the slices in rank order, dW from the
-    factors (ds_j, y_j) and (v_j, z_j). Returns (dx or None, dW or None)."""
-    bsz, in_caps, in_len = x.shape
-    out_caps, out_len = weight.shape[:2]
-    R = num_iterations
-    slices = _slices(out_caps, min(cluster, out_caps))
-    w = weight
-    a = x.new_zeros((bsz, out_caps, in_len))
+def _factored_forward(x, w, num_iterations, slices):
+    """The factored forward passes over the output capsules split into
+    ``slices``: each slice's (max, sum of exp) of every logit row, combined
+    over the slices in rank order, the couplings c = exp(b - max_slice)
+    exp(max_slice - max) / sum, y_j = sum_i c_ij x_i, a_j += W_j^T v_j with
+    v_j = squash(W_j y_j). Returns (a and y of every pass, (max, 1/sum) of
+    every pass, the last pass's v)."""
+    a = x.new_zeros((x.shape[0], w.shape[0], x.shape[2]))
     stash_a, stash_y, stats = [], [], []
-    for r in range(R):
+    for r in range(num_iterations):
         logits = torch.einsum('bil,bjl->bij', x, a)
         parts = []
         for j0, j1 in slices:
@@ -686,10 +800,44 @@ def factored_bwd_reference(x: torch.Tensor, weight: torch.Tensor,
         stash_a.append(a)
         stash_y.append(y)
         stats.append((m, zi))
-        if r < R - 1:
-            s = torch.einsum('jol,bjl->bjo', w, y)
-            g, _ = _squash_grad((s * s).sum(-1, keepdim=True))
+        s = torch.einsum('jol,bjl->bjo', w, y)
+        g, _ = _squash_grad((s * s).sum(-1, keepdim=True))
+        if r < num_iterations - 1:
             a = a + torch.einsum('bjo,jol->bjl', g * s, w)
+    return stash_a, stash_y, stats, g * s
+
+
+def factored_fwd_reference(x: torch.Tensor, weight: torch.Tensor,
+                           num_iterations: int,
+                           cluster: int = 1) -> torch.Tensor:
+    """K1-G's algorithm in plain PyTorch, for x [B, I, 8] and weight [J, O,
+    8]: the output capsules split into ``cluster`` slices as
+    ``factored_fwd_plan`` splits them, each slice's softmax statistics
+    combined in rank order, the votes never formed (``_factored_forward``);
+    returns the last pass's v [B, J, O]."""
+    slices = _slices(weight.shape[0], min(cluster, weight.shape[0]))
+    return _factored_forward(x, weight, num_iterations, slices)[3]
+
+
+def factored_bwd_reference(x: torch.Tensor, weight: torch.Tensor,
+                           dv: torch.Tensor, num_iterations: int,
+                           cluster: int = 1, need_dx: bool = True,
+                           need_dw: bool = True):
+    """K2-G's algorithm in plain PyTorch, for x [B, I, 8] and weight [J, O,
+    8]: the output capsules split into ``cluster`` slices as
+    ``factored_bwd_plan`` splits them, the votes never formed. Forward:
+    ``_factored_forward``, the a_j and y_j of every pass stashed. Reverse,
+    per pass: ds_j through the squash, e_j =
+    W_j^T ds_j, the couplings recomputed, rho_i = sum_j c_ij x_i . e_j
+    summed over the slices in rank order, the logit gradient db, each
+    slice's part of dx and the previous pass's dv_j = W_j z_j with z_j =
+    sum_i db_ij x_i; dx summed over the slices in rank order, dW from the
+    factors (ds_j, y_j) and (v_j, z_j). Returns (dx or None, dW or None)."""
+    out_caps = weight.shape[0]
+    R = num_iterations
+    slices = _slices(out_caps, min(cluster, out_caps))
+    w = weight
+    stash_a, stash_y, stats, _ = _factored_forward(x, w, R, slices)
     dx_parts = [x.new_zeros(x.shape) for _ in slices]
     dw = torch.zeros_like(w)
     grad_v, db = dv, None

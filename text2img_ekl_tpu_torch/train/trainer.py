@@ -69,9 +69,6 @@ class CondGANTrainer:
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError('device %s requested but torch finds no CUDA '
                                'device' % device)
-        if cfg.TPU_BN_DTYPE == 'bfloat16':
-            print('TPU_BN_DTYPE bfloat16: the port normalises in float32 '
-                  '(bf16 BatchNorm IO is ROADMAP.md M14)')
         self.batch_size = cfg.TRAIN.BATCH_SIZE
         self.data_loader = data_loader or self._build_loader()
         self.num_batches = len(self.data_loader)

@@ -34,8 +34,11 @@ events in turns, and the routing kernel's device time):
 
 - forward at a votes-form shape (in_length > 8, the discriminator class
   head: ``--shape 16,512,201,16 --batch 32``): K1-D (``routing_fwd_votes``),
-  its 3xTF32 vote product and its routing, and the cluster sweep; at
-  in_length 8, K1-G's one kernel;
+  its 3xTF32 vote product and its routing, and the cluster sweep;
+- forward at in_length 8 (the generator head: ``--shape 48,8,1024,32
+  --batch 32`` or ``320``): K1-G (``routing_fwd_factored``), its W planes
+  and its routing, its plan, the clusters the card holds at once, and the
+  cluster sweep;
 - ``--bwd`` at in_length 8 (the generator head: ``--shape 48,8,1024,32
   --batch 32``): K2-G (``routing_bwd_factored``) with dx and dW and with dx
   only (``need_dw=False``), its routing kernel and its dW sum, and the
@@ -250,15 +253,48 @@ def _sms(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def fwd_sweep_plans(bsz, in_caps, out_caps, sms):
+    """K1-G's plans {cluster: plan} at every cluster size the plan
+    clamps to."""
+    return sweep_plans(lambda c: cc.factored_fwd_plan(
+        bsz, in_caps, out_caps, ITERS, sms, cluster=c),
+        cc.FACTORED_CLUSTER_SIZES)
+
+
+def profile_factored_fwd(x, w):
+    """K1-G's plan, the clusters the card holds at once and its cluster
+    sweep; prints and returns {'plan': plan, 'held': {cluster: clusters},
+    'sweep': {cluster: (events ms, routing us)}}."""
+    bsz, in_caps = x.shape[:2]
+    out_caps, out_len = w.shape[:2]
+    sms = _sms(x.device)
+    held = cc.fwd_card_clusters(x.device, in_caps, out_caps, out_len)
+    plan = cc.factored_fwd_plan(bsz, in_caps, out_caps, ITERS, sms,
+                                max_clusters=held)
+    plans = fwd_sweep_plans(bsz, in_caps, out_caps, sms)
+    counts = {c: held(p.cluster, p.in_smem) for c, p in plans.items()}
+    print('K1-G plan on %d SMs: clusters of %d, %d blocks, %d B of shared '
+          'memory a block, couplings in shared memory %s; clusters the card '
+          'holds at once: %s' % (
+              sms, plan.cluster, plan.blocks, plan.smem_bytes, plan.in_smem,
+              ', '.join('%d of C=%d' % (n, c) for c, n in counts.items())))
+    sweep = cluster_sweep('K1-G', plans, lambda p: cc.routing_fwd_factored(
+        x, w, ITERS, plan=p), x.device)
+    return {'plan': plan, 'held': counts, 'sweep': sweep}
+
+
 def profile_fwd(x, w):
-    """K1's device time by kernel; at a votes-form shape also K1-D's plan
-    and cluster sweep. Prints and returns {'k1': trace, 'sweep': {cluster:
-    (events ms, routing us)}}."""
+    """K1's device time by kernel (K1-D: the vote product u and the
+    routing; K1-G: W's planes and the routing), its plan and its cluster
+    sweep. Prints and returns {'k1': trace, 'sweep': {cluster: (events ms,
+    routing us)}} (and for K1-G its 'plan' and 'held')."""
     out = {'k1': _label(kernel_trace(lambda: capsule_routing(x, w, ITERS)),
                         ('u',))}
     votes = x.shape[2] != cc.FACTORED_IN_LENGTH
     _print_trace('K1-D' if votes else 'K1-G', out['k1'])
-    if votes:
+    if not votes:
+        out.update(profile_factored_fwd(x, w))
+    else:
         shape = x.shape + w.shape[:2]
         plan = cc.votes_fwd_plan(*shape, _sms(x.device))
         print('K1-D plan on %d SMs: clusters of %d, %d blocks, %d B of shared '

@@ -30,7 +30,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUPS = (('K3 fused BN+GLU', ('bn_glu_kernel',)),
           ('K4 conv weight gradient', ('dw_wgmma', 'dw_partial',
                                        'dw_reduce')),
-          ('K1-G capsule routing', ('routing_fwd_kernel',)),
+          ('K1-G capsule routing', ('routing_fwd_factored_cluster_kernel',)),
+          ('W planes (K1-G, K2-G)', ('w_planes_kernel',)),
           ('K1-D capsule routing', ('routing_votes_fwd_cluster_kernel',)),
           ('K2-G routing backward', ('routing_bwd_factored_cluster_kernel',
                                      'dw_factored_kernel')),
