@@ -10,7 +10,8 @@ found; any failure raises and exits non-zero:
   1. build the CUDA kernels from text2img_ekl_tpu_torch/csrc with nvcc, one
      process per source, all at once; print ptxas's registers and spills
      per kernel and, from cuobjdump -sass, the tensor-core instructions of
-     the 3xTF32 product kernels of K1-D and K2-D;
+     the 3xTF32 product kernels of K1-D and K2-D and of K4's float32 body
+     (with its registers and spills);
   2. hold the factored capsule-routing forward (K1-G) to the plain PyTorch
      routing on the card, float32 with TF32 off, at the sampler's batch
      (B=320) and the training batch (B=32) of the generator head and at a
@@ -54,9 +55,12 @@ found; any failure raises and exits non-zero:
      time each;
  11. hold K4 (the 3x3 conv weight gradient) to its plain version at every
      flagship shape inside the envelope, bfloat16 and float32, check that
-     two calls on the same inputs are bit-identical, and time it in turns
-     with cuDNN's weight gradient (the yardstick; the port never calls it)
-     and the plain version, with each time over its bound and over cuDNN's;
+     two calls on the same inputs are bit-identical and that the float32
+     body (3xTF32) is float32-faithful (its max error against the float64
+     contraction at most twice the float32 plain version's), and time it in
+     turns with cuDNN's weight gradient (the yardstick; the port never
+     calls it) and the plain version, with each time over its bound (the
+     float32 body's at 3xTF32 on the tensor cores) and over cuDNN's;
  12. the flagship sampler with TPU_FUSED_BN_GLU on (eval mode, B=320):
      K3's launches per call, images against the unfused sampler on the
      same weights (held to the bars with float32 BatchNorm on both sides,
@@ -185,11 +189,12 @@ def _cuobjdump():
                        'triton): the SASS of the products cannot be shown')
 
 
-def _tensor_core_sass(lib, who):
-    """{3xTF32 product kernel (mangled name): {tensor-core opcode: count}}
-    from cuobjdump -sass of ``lib``; raises where ``lib`` has no product
-    kernel or one has none of the tf32 MMA instructions (HGMMA / HMMA ...
-    TF32). ``who`` names the routing kernels whose products they are."""
+def _tensor_core_sass(lib, who, names=('gemm_tf32x3', 'gemm_kernel')):
+    """{3xTF32 kernel (mangled name): {tensor-core opcode: count}} from
+    cuobjdump -sass of ``lib``, for the kernels whose names hold all of
+    ``names`` (by default the 3xTF32 product kernels); raises where ``lib``
+    has no such kernel or one has none of the tf32 MMA instructions (HGMMA
+    / HMMA ... TF32). ``who`` names the kernels they belong to."""
     sass = subprocess.run([_cuobjdump(), '-sass', str(lib)],
                           capture_output=True, text=True,
                           check=True).stdout
@@ -197,7 +202,7 @@ def _tensor_core_sass(lib, who):
     for line in sass.splitlines():
         if 'Function :' in line:
             fn = line.split('Function :')[1].strip()
-            if 'gemm_tf32x3' in fn and 'gemm_kernel' in fn:
+            if all(n in fn for n in names):
                 found[fn] = {}
             continue
         if fn in found:
@@ -206,9 +211,28 @@ def _tensor_core_sass(lib, who):
                     found[fn][word] = found[fn].get(word, 0) + 1
     if not found or not all(any('TF32' in op for op in ops)
                             for ops in found.values()):
-        raise AssertionError('%s product kernels without tf32 tensor-core '
+        raise AssertionError('%s kernels without tf32 tensor-core '
                              'instructions: %s' % (who, found))
     return found
+
+
+def _ptxas_usage(log, name):
+    """(registers, spill store bytes, spill load bytes) that ptxas reported
+    for the kernel whose mangled name holds ``name``, from a build log."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if 'Compiling entry function' in line and name in line:
+            regs = spills = None
+            for nxt in lines[i + 1:i + 5]:
+                words = nxt.replace(',', ' ').split()
+                if 'spill' in nxt:
+                    spills = (int(words[words.index('spill') - 2]),
+                              int(words[words.index('spill', words.index(
+                                  'spill') + 1) - 2]))
+                if 'registers' in nxt:
+                    regs = int(words[words.index('registers') - 1])
+            return regs, spills[0], spills[1]
+    raise AssertionError('ptxas reported no kernel %s' % name)
 
 
 def _errors(out, ref, rtol, atol):
@@ -493,6 +517,16 @@ def main() -> int:
                   ', '.join('%d x %s' % (n, op) for op, n in
                             sorted(ops.items()))
                   for ops in sass.values()}))))
+    sass = _tensor_core_sass(libs['conv3x3_dw'], 'K4\'s float32 body',
+                             ('dw_tf32x3_kernel',))
+    regs, spill_st, spill_ld = _ptxas_usage(
+        libs['conv3x3_dw'].with_suffix('.log').read_text(), 'dw_tf32x3_kernel')
+    print('phase 1 SASS (cuobjdump -sass): K4\'s float32 body '
+          '(dw_tf32x3_kernel) issues %s; ptxas: %d registers, %d bytes spill '
+          'stores, %d bytes spill loads'
+          % ('; '.join(', '.join('%d x %s' % (n, op) for op, n in
+                                 sorted(ops.items()))
+                       for ops in sass.values()), regs, spill_st, spill_ld))
 
     # 2. K1-G against the plain routing
     rng = np.random.default_rng(0)
@@ -955,6 +989,8 @@ def main() -> int:
             if device == 'cuda':
                 torch.cuda.synchronize()
                 step_launches = launches()
+                if switches:  # the float32 body's launches in a step
+                    f32_step_k4 = step_launches['K4']
             names = {p: n for n, p in st.G.named_parameters()}
             moments = [{names[p]: s['exp_avg'].cpu()
                         for p, s in st.g_opt.state.items()}]
@@ -1085,6 +1121,19 @@ def main() -> int:
             if not torch.equal(out, again):
                 raise AssertionError('K4: two calls on the same inputs differ')
             max_abs, max_rel, scale, ok = _errors(out, ref, K4_RTOL, K4_ATOL)
+            faithful = ''
+            if dtype == torch.float32:
+                # the 3xTF32 body against the float64 contraction, beside
+                # the float32 plain version (cuBLAS, TF32 off)
+                exact = conv_dw.dw3x3_reference(x, dy, torch.float64)
+                f64_err = (float((out.double() - exact).abs().max()),
+                           float((ref.double() - exact).abs().max()))
+                del exact
+                faithful = ('; vs float64: kernel %.3e, plain float32 %.3e '
+                            '(ratio %.2f, bound 2): %s' % (
+                                *f64_err, f64_err[0] / f64_err[1],
+                                'ok' if f64_err[0] <= 2 * f64_err[1]
+                                else 'FAIL'))
 
             def library():
                 return torch.ops.aten.convolution_backward(
@@ -1098,26 +1147,32 @@ def main() -> int:
                 'library': library,
                 'plain': lambda: conv_dw.dw3x3_reference(x, dy)}, iters=10)
             flops, nbytes = _k4_work(x_shape, f, x.element_size())
-            bound_ms, bound_by = _bound(
-                flops, nbytes,
-                BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+            # bf16 on the tensor cores; float32 there too, as three tf32
+            # products (3xTF32)
+            bound_ms, bound_by = (
+                _bound(flops, nbytes, BF16_FLOPS) if dtype == torch.bfloat16
+                else _bound(3 * flops, nbytes, TF32_FLOPS))
             k4[(dtype, x_shape, f)] = (best['kernel'][0], best['plain'][0],
-                                       bound_ms, best['library'][0], bound_by)
+                                       bound_ms, best['library'][0], bound_by,
+                                       max_abs)
             print('phase 11 K4 %s x %s dy %s: max|ref| %.3e, max_abs_err '
                   '%.3e, max_rel_err %.3e (cuDNN wgrad max_abs_err %.3e); '
-                  'bound |d| <= %.0e |ref| + %.0e max|ref|: %s; two calls '
+                  'bound |d| <= %.0e |ref| + %.0e max|ref|: %s%s; two calls '
                   'bit-identical; kernel %.4f ms, cuDNN wgrad %.4f ms, plain '
                   '%.4f ms (best of 2 x 10, in turns), bound %.4f ms (%s); '
                   'kernel / bound %.2f, kernel / cuDNN %.3f'
                   % (str(dtype).split('.')[-1], list(x_shape),
                      [b_, f, h_, w_], scale, max_abs, max_rel, lib_abs,
-                     K4_RTOL, K4_ATOL, 'ok' if ok else 'FAIL',
+                     K4_RTOL, K4_ATOL, 'ok' if ok else 'FAIL', faithful,
                      best['kernel'][0], best['library'][0],
                      best['plain'][0], bound_ms, bound_by,
                      best['kernel'][0] / bound_ms,
                      best['kernel'][0] / best['library'][0]))
             if not ok:
                 raise AssertionError('K4 disagrees with its plain version')
+            if faithful.endswith('FAIL'):
+                raise AssertionError('K4\'s float32 body is not float32-'
+                                     'faithful')
             if dtype == torch.bfloat16:
                 err['K4'] = max(err['K4'], max_abs)
             del x, dy, out, again, ref, lib
@@ -1130,19 +1185,23 @@ def main() -> int:
               % (str(dtype).split('.')[-1], *tot, tot[0] / tot[2],
                  tot[0] / tot[3]))
         if dtype == torch.float32:
-            # a float32-faithful tensor-core body would do each product as
-            # three tf32 ones (3xTF32)
-            tf32x3 = sum(n * _bound_parts([(3 * _k4_work(xs, f, 4)[0],
-                                            TF32_FLOPS)],
-                                          _k4_work(xs, f, 4)[1])[0]
-                         for xs, f, n in K4_SHAPES)
-            print('phase 11 K4 per step, float32: bound at the float32 SIMT '
-                  'peak %.4f ms, at the TF32 tensor-core peak done three '
-                  'times (3xTF32) %.4f ms; cuDNN float32 wgrad (TF32 off) '
-                  '%.4f ms' % (tot[2], tf32x3, tot[3]))
-            extra['K4'] = {'float32': {'ms': tot[0], 'bound_ms': tot[2],
-                                       'bound_3xtf32_ms': tf32x3,
-                                       'library_ms': tot[3]}}
+            simt = sum(n * _bound(*_k4_work(xs, f, 4))[0]
+                       for xs, f, n in K4_SHAPES)
+            print('phase 11 K4 per step, float32: kernel %.4f ms against its '
+                  'bound at the TF32 tensor-core peak done three times '
+                  '(3xTF32) %.4f ms, the float32 SIMT peak\'s %.4f ms and '
+                  'cuDNN\'s float32 wgrad (TF32 off) %.4f ms'
+                  % (tot[0], tot[2], simt, tot[3]))
+            # the float32 body's own record: launches in phase 9's float32
+            # step with the switches (the flagship trains in bf16)
+            extra['K4'] = {'float32': {
+                'name': 'dw_tf32x3_kernel', 'launches': f32_step_k4,
+                'max_abs_err': max(k4[(dtype, xs, f)][5]
+                                   for xs, f, _ in K4_SHAPES),
+                'ms': tot[0], 'plain_ms': tot[1], 'bound_ms': tot[2],
+                'bound_by': max((k4[(dtype, xs, f)][2], k4[(dtype, xs, f)][4])
+                                for xs, f, _ in K4_SHAPES)[1],
+                'bound_simt_ms': simt, 'library_ms': tot[3]}}
         if dtype == torch.bfloat16:
             timing['K4'] = (tot[0], tot[1], tot[2], max(
                 (k4[(dtype, xs, f)][2], k4[(dtype, xs, f)][4])

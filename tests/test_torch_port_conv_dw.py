@@ -3,10 +3,11 @@
 ``ops.conv_dw.plan`` is the pure-Python part of the 3x3 conv weight
 gradient's launch: how many K-steps (image row segments), output tiles and
 split-K blocks a call takes, and the float32 scratch the blocks' partial
-sums need. The kernel itself runs only on the card
-(tests/test_torch_port_cuda.py); here the plan's invariants, its values at
-the flagship's shapes on an H100 (132 SMs), and a CPU run of
-tools/bench_conv_dw_torch.py on the plain version.
+sums need, for the bf16 and the float32 (3xTF32) body. The kernel itself
+runs only on the card (tests/test_torch_port_cuda.py); here the plan's
+invariants, its values at the flagship's shapes on an H100 (132 SMs), and
+CPU runs of tools/bench_conv_dw_torch.py on the plain version in both
+types.
 """
 
 import os
@@ -36,16 +37,16 @@ H100_SMS = 132
 def test_plan_covers_every_step_once(shape, bf16, sms):
     """The splits' runs of ``chunk`` K-steps cover the call's K-steps with
     no empty split, and the blocks fill at most the SMs they were planned
-    for (bf16 one block per SM, float32 two)."""
+    for, one block per SM (a bf16 K-step is min(W, 64) columns, a float32
+    one 32: one 128-byte operand row)."""
     b, c, h, f = shape
     p = conv_dw.plan(b, c, h, h, f, bf16, sms)
-    assert p.slab_cols == min(h, 64)
+    assert p.slab_cols == (min(h, 64) if bf16 else 32)
     assert p.steps == b * h * (h // p.slab_cols)
     tiles = -(-f // 64) * (1 if bf16 else -(-c // 32))
     assert p.tiles == tiles
     assert p.splits * p.chunk >= p.steps > (p.splits - 1) * p.chunk
-    per_sm = 1 if bf16 else 2
-    assert p.splits == 1 or p.tiles * (p.splits - 1) < per_sm * sms
+    assert p.splits == 1 or p.tiles * (p.splits - 1) < sms
     assert p.partial_numel == p.splits * f * c * 9
 
 
@@ -62,6 +63,21 @@ def test_plan_at_the_flagship():
                                                          splits, chunk)
         assert p.tiles * p.splits <= H100_SMS
         assert 18.8e6 < 4 * p.partial_numel < 19.4e6
+
+
+def test_plan_at_the_flagship_float32():
+    """The same shapes in float32 (TPU_COMPUTE_DTYPE float32): 32-column
+    K-steps, 64 f x 32 c tiles, one block per SM (132 at all three shapes);
+    the partials take 9.7 MB."""
+    want = {(32, 64, 64, 128): (4096, 4, 33, 125),
+            (32, 64, 64, 64): (4096, 2, 66, 63),
+            (32, 64, 128, 64): (16384, 2, 66, 249)}
+    for (b, c, h, f), (steps, tiles, splits, chunk) in want.items():
+        p = conv_dw.plan(b, c, h, h, f, False, H100_SMS)
+        assert (p.slab_cols, p.steps, p.tiles, p.splits, p.chunk) == (
+            32, steps, tiles, splits, chunk)
+        assert p.tiles * p.splits == H100_SMS
+        assert 4 * p.partial_numel == 9732096
 
 
 def test_plan_splits_mid_image():
@@ -87,6 +103,18 @@ def test_bench_runs_on_the_cpu():
     assert 'card: cpu (host clock)' in proc.stdout
     assert 'K4 x [2,8,32,32] dy F=16' in proc.stdout
     assert 'bit-identical over two calls' in proc.stdout
+    assert 'cuDNN' not in proc.stdout and 'bound' not in proc.stdout
+
+
+def test_bench_runs_on_the_cpu_in_float32():
+    """``--dtype float32``: the same CPU run on float32 inputs, with the
+    plain version's error against the float64 contraction printed."""
+    proc = _bench('--device', 'cpu', '--dtype', 'float32', '--shape',
+                  '2,8,32,16')
+    assert proc.returncode == 0, proc.stderr
+    assert 'card: cpu (host clock); K4 float32' in proc.stdout
+    assert 'K4 x [2,8,32,32] dy F=16' in proc.stdout
+    assert 'max_abs_err vs float64' in proc.stdout
     assert 'cuDNN' not in proc.stdout and 'bound' not in proc.stdout
 
 

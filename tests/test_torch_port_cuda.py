@@ -39,6 +39,9 @@ ulp of the reference (both round one float32 value once). K4 (3x3 conv
 weight gradient) is held to ``dw3x3_reference`` at |d| <= 1e-3 |ref| + 1e-4
 max|ref|: float32 sums over B*H*W up to 524,288 terms in another order;
 two calls on the same inputs must agree bit for bit (fixed-order split-K).
+Its float32 body (3xTF32 on the tensor cores) must also be float32-faithful:
+its max error against the contraction in float64 at most twice that of
+the float32 ``dw3x3_reference`` (on the card: cuBLAS, TF32 off).
 """
 
 import os
@@ -799,6 +802,38 @@ def test_k4_bf16_at_ragged_shapes(card, w, c, bf):
     assert_k4_close(out, ref)
 
 
+@pytest.mark.parametrize('w', [32, 64, 128, 256, 512])
+@pytest.mark.parametrize('c', [3, 16, 64])
+@pytest.mark.parametrize('bf', [(1, 72), (3, 8), (32, 128), (3, 64)])
+def test_k4_float32_at_ragged_shapes(card, w, c, bf):
+    """The float32 body (3xTF32 wgmma on the same TMA ring) inside the
+    envelope: one to sixteen 32-column K-steps a row, channel counts that
+    leave most of a 32-row x box out of bounds (C 3) or fill one or two c
+    tiles, F below, at and across 64-row f tiles."""
+    b, f = bf
+    b = min(b, {256: 8, 512: 1}.get(w, b))  # keep the large maps small
+    x, dy = _k4_inputs((b, c, w, f), torch.float32, card)
+    before = conv_dw.dw3x3_kernel.launches
+    out = conv_dw.dw3x3(x, dy)
+    ref = conv_dw.dw3x3_reference(x, dy)
+    torch.cuda.synchronize()
+    assert conv_dw.dw3x3_kernel.launches == before + 1
+    assert_k4_close(out, ref)
+
+
+@pytest.mark.parametrize('f', [128, 64])
+def test_k4_float32_is_faithful_at_the_flagship(card, f):
+    """At the flagship's 64 px shapes (K = 131,072): the 3xTF32 body's max
+    error against the float64 contraction is at most twice that of the
+    float32 plain version."""
+    x, dy = _k4_inputs((32, 64, 64, f), torch.float32, card)
+    exact = conv_dw.dw3x3_reference(x, dy, torch.float64)
+    err = float((conv_dw.dw3x3(x, dy).double() - exact).abs().max())
+    f32 = float((conv_dw.dw3x3_reference(x, dy).double() - exact)
+                .abs().max())
+    assert err <= 2 * f32, (err, f32)
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('shape,sms', [
     ((3, 16, 32, 64), 5),     # runs of 20 rows start inside images 0 and 1
@@ -843,6 +878,20 @@ def test_k4_refused_launch_raises(card):
     p = conv_dw.plan(2, 16, 32, 32, 8, True, 4)
     with pytest.raises(RuntimeError, match='failed to launch'):
         conv_dw.run_plan(x, dy, p._replace(splits=p.splits - 1))
+    assert conv_dw.dw3x3_kernel.launches == before
+
+
+def test_k4_float32_refused_launch_raises(card):
+    """The float32 body maps x through TMA too: a float32 x whose data is
+    not 16-byte aligned raises and counts no launch."""
+    x, dy = _k4_inputs((2, 16, 32, 8), torch.float32, card)
+    shifted = torch.empty(x.numel() + 1, device=card, dtype=x.dtype)
+    shifted[1:].copy_(x.flatten())
+    x_odd = shifted[1:].view(x.shape)
+    assert x_odd.is_contiguous() and x_odd.data_ptr() % 16 != 0
+    before = conv_dw.dw3x3_kernel.launches
+    with pytest.raises(RuntimeError, match='failed to launch'):
+        conv_dw.dw3x3(x_odd, dy)
     assert conv_dw.dw3x3_kernel.launches == before
 
 

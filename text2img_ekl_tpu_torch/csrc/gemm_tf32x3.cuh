@@ -9,10 +9,9 @@
 //   C row-major with leading dimension ldc; the layouts of the products:
 //   K- and K-major (u), K- and N-major (K2-D's dx), M- and N-major (its dW).
 //
-// Each float32 operand is split into a tf32 high part and a tf32 low part,
-// hi = rna(a), lo = rna(a - hi) (round to nearest, ties away from zero, as
-// cvt.rna.tf32.f32 rounds), and every product is accumulated in float32 as
-// lo.hi + hi.lo + hi.hi; lo.lo is dropped. That keeps ~22 of float32's 24
+// Each float32 operand is split into a tf32 high part and a tf32 low part
+// (tf32.cuh), and every product is accumulated in float32 as lo.hi + hi.lo
+// + hi.hi; lo.lo is dropped. That keeps ~22 of float32's 24
 // significand bits at three times the tensor-core work: single TF32 keeps
 // 11 and would change the backward's result beyond K2's bar.
 //
@@ -50,7 +49,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32.cuh"
+
 namespace gemm_tf32x3 {
+
+using tf32::split;
 
 constexpr int kBM = 128;
 constexpr int kBN = 104;
@@ -100,19 +103,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
-// The bits of cvt.rna.tf32.f32(a) for every finite a (and an infinity or
-// a NaN for those): half a tf32 step added to the magnitude, the 13 low
-// bits cleared. Two integer operations on the full-rate pipe instead of a
-// conversion instruction.
-__device__ __forceinline__ uint32_t to_tf32(float a) {
-  return (__float_as_uint(a) + 0x1000u) & 0xFFFFE000u;
-}
-
-__device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(a);
-  lo = to_tf32(a - __uint_as_float(hi));
 }
 
 // Stages one rows x cols tile whose source rows are contiguous: row r,

@@ -42,6 +42,7 @@ import torch
 
 from . import _build
 from .capsule import capsule_linear, dynamic_routing
+from .tf32 import round_tf32
 
 FACTORED_IN_LENGTH = 8    # the factored kernels' capsule rows are two float4
 OUT_LENGTHS = (16, 32)    # instantiated templates (csrc/*.cu)
@@ -681,15 +682,6 @@ def _plain_backward(x, weight, dv, num_iterations, need_dx, need_dw):
         grads = iter(torch.autograd.grad(out, inputs, dv))
     return (next(grads) if need_dx else None,
             next(grads) if need_dw else None)
-
-
-def round_tf32(a: torch.Tensor) -> torch.Tensor:
-    """float32 -> the nearest tf32 value (10 stored significand bits),
-    ties away from zero, by bit arithmetic on the float32 pattern, as
-    ``cvt.rna.tf32.f32`` rounds; infinities and NaNs pass unchanged."""
-    bits = a.float().contiguous().view(torch.int32)
-    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-    return torch.where(torch.isfinite(a), rounded, a.float())
 
 
 def tf32x3_matmul_reference(a: torch.Tensor, b: torch.Tensor

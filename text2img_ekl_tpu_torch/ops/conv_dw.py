@@ -9,10 +9,12 @@ and ``dw3x3_v2`` (``_dw_kernel_v2``), two TPU bodies of one function,
 accumulated in float32, and ``conv3x3_dw``, the conv whose custom VJP
 computes dW with it. The port's layouts are PyTorch's: x [B, C, H, W], dy
 [B, F, H, W], dW [F, C, 3, 3] (the conv weight's). The kernel
-(``csrc/conv3x3_dw.cu``) contracts bfloat16 inputs on the tensor cores
-(TMA-fed ``wgmma``) and float32 inputs on the SIMT cores, both with float32
-accumulators, into split-K partial sums in a scratch and a fixed-order sum
-of them; ``plan`` is the split that the wrapper hands it.
+(``csrc/conv3x3_dw.cu``) contracts on the tensor cores (TMA-fed ``wgmma``)
+with float32 sums: bfloat16 inputs as they are, float32 inputs
+float32-faithfully as three tf32 products (3xTF32, whose arithmetic
+``dw3x3_tf32x3_reference`` emulates), into split-K partial sums in a
+scratch and a fixed-order sum of them; ``plan`` is the split that the
+wrapper hands it.
 
 ``dw3x3`` runs ``dw3x3_reference`` for tensors on the CPU, and only there;
 for CUDA tensors it launches the kernel or raises, also on a shape outside
@@ -29,24 +31,29 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .tf32 import round_tf32
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (text2img_ekl_tpu/ops/conv_dw.py:_TILE_FOR_W) row tile per width: the
 # envelope needs H divisible by it
 _TILE_FOR_W = {32: 32, 64: 64, 128: 128, 256: 64, 512: 16}
-# the kernel's tiles (csrc/conv3x3_dw.cu). A K-step is one image row segment
-# of min(W, 64) columns. bf16: a block owns 64 output x all (<= 64) input
-# channels x 9 taps, one block per SM; float32 (SIMT): 64 x 32 channels, two
-# blocks per SM.
+# the kernel's tiles (csrc/conv3x3_dw.cu), one block per SM. A K-step is
+# one image row segment: min(W, 64) columns in bf16, 32 in float32. A bf16
+# block owns 64 output x all (<= 64) input channels x 9 taps, a float32
+# block 64 x 32 (its running sums and a K-step's partial fill the
+# registers).
 TILE_F, MAX_SLAB_COLS = 64, 64
-F32_TILE_C, F32_BLOCKS_PER_SM = 32, 2
+F32_TILE_C, F32_STEP_COLS = 32, 32
 
 
 class DwPlan(NamedTuple):
     """How K4 splits one call: ``steps`` K-steps of ``slab_cols`` columns,
-    ``tiles`` output tiles, each summed by ``splits`` blocks over runs of
-    ``chunk`` K-steps (the last run may be shorter, none is empty); the
-    float32 scratch holds ``partial_numel`` = splits x F x C x 9 values."""
+    ``tiles`` output tiles (bf16: 64 f each; float32: 64 f x 32 c), each
+    summed by ``splits`` blocks over runs of ``chunk`` K-steps (the last
+    run may be shorter, none is empty); the float32 scratch holds
+    ``partial_numel`` = splits x F x C x 9 values. The float32 body adds
+    each K-step's 3xTF32 tensor-core partial to its block's running sum
+    in IEEE float32."""
     slab_cols: int
     steps: int
     tiles: int
@@ -57,16 +64,14 @@ class DwPlan(NamedTuple):
 
 def plan(B: int, C: int, H: int, W: int, F: int, bf16: bool,
          sms: int) -> DwPlan:
-    """Enough (tile, split) blocks to fill ``sms`` SMs (bf16: once, float32:
-    F32_BLOCKS_PER_SM times), at least one K-step each."""
-    cols = min(W, MAX_SLAB_COLS)
+    """Enough (tile, split) blocks to fill ``sms`` SMs once, at least one
+    K-step each."""
+    cols = min(W, MAX_SLAB_COLS) if bf16 else F32_STEP_COLS
     steps = B * H * (W // cols)
     tiles = -(-F // TILE_F)
-    per_sm = 1
     if not bf16:
         tiles *= -(-C // F32_TILE_C)
-        per_sm = F32_BLOCKS_PER_SM
-    want = max(1, min(steps, -(-per_sm * sms // tiles)))
+    want = max(1, min(steps, -(-sms // tiles)))
     chunk = -(-steps // want)
     splits = -(-steps // chunk)
     return DwPlan(cols, steps, tiles, splits, chunk, splits * F * C * 9)
@@ -100,17 +105,64 @@ def dw_supported(H: int, W: int, C: int, F: int) -> bool:
             H % _TILE_FOR_W[W] == 0 and W % 8 == 0 and F % 8 == 0)
 
 
-def dw3x3_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch: nine shifted float32 contractions over the zero-padded
-    x; x [B, C, H, W], dy [B, F, H, W] -> dW [F, C, 3, 3] float32 (K4's twin
-    on the CPU)."""
+def dw3x3_reference(x: torch.Tensor, dy: torch.Tensor,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch: nine shifted contractions over the zero-padded x in
+    ``dtype`` (float32: K4's twin on the CPU; float64: the yardstick of the
+    float32 body's faithfulness); x [B, C, H, W], dy [B, F, H, W] -> dW [F,
+    C, 3, 3] in ``dtype``."""
     h, w = x.shape[2:]
-    xp = F.pad(x.float(), (1, 1, 1, 1))
-    dyf = dy.float()
+    xp = F.pad(x.to(dtype), (1, 1, 1, 1))
+    dyf = dy.to(dtype)
     taps = [torch.einsum('bfhw,bchw->fc', dyf,
                          xp[:, :, ky:ky + h, kx:kx + w])
             for ky in range(3) for kx in range(3)]
     return torch.stack(taps, -1).view(dy.shape[1], x.shape[1], 3, 3)
+
+
+def dw3x3_tf32x3_reference(x: torch.Tensor, dy: torch.Tensor, chunk: int,
+                           terms: int = 3) -> torch.Tensor:
+    """The float32 body's arithmetic in plain PyTorch, for the tests (the
+    wrapper never calls it): x and dy split into tf32 hi = tf32(v) and lo =
+    tf32(v - hi); each K-step (an image row segment of F32_STEP_COLS
+    columns) contracted as lo.hi + hi.lo + hi.hi into a fresh float32
+    partial; the partials of each split-K run of ``chunk`` K-steps (the
+    plan's) added one after another to a float32 sum from zero, and the
+    runs' sums added in order. ``terms=1`` keeps hi.hi alone (single
+    TF32). Up to the order of the sums inside a K-step."""
+    b, c, h, w = x.shape
+    f = dy.shape[1]
+    cols = F32_STEP_COLS
+
+    def steps(t):  # [B, R, H, W] -> [K-steps, R, cols], the kernel's order
+        r = t.shape[1]
+        return t.reshape(b, r, h, w // cols, cols).permute(
+            0, 3, 2, 1, 4).reshape(-1, r, cols)
+
+    def split(t):
+        hi = round_tf32(t)
+        return hi, round_tf32(t - hi)
+
+    dh, dl = (steps(v) for v in split(dy.float()))
+    xp = F.pad(x.float(), (1, 1, 1, 1))
+    taps = []
+    for ky in range(3):
+        for kx in range(3):
+            xh, xl = (steps(v) for v in split(
+                xp[:, :, ky:ky + h, kx:kx + w].contiguous()))
+            part = dh @ xh.transpose(1, 2)
+            if terms == 3:
+                part = dl @ xh.transpose(1, 2) + dh @ xl.transpose(1, 2) + \
+                    part
+            taps.append(part)
+    parts = torch.stack(taps, -1)  # [K-steps, F, C, 9]
+    out = torch.zeros(parts.shape[1:], dtype=torch.float32)
+    for run in parts.split(chunk):
+        acc = torch.zeros_like(out)
+        for p in run:
+            acc += p
+        out += acc
+    return out.view(f, c, 3, 3)
 
 
 def dw3x3(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:

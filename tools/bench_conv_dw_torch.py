@@ -3,24 +3,30 @@
 cuDNN's weight gradient and the plain version, at the flagship shapes.
 
     python3 tools/bench_conv_dw_torch.py [--shape B,C,H,F] [--device cuda]
-        [--profile]
+        [--dtype bfloat16|float32] [--profile]
 
 Without ``--shape`` it runs the three shapes the flagship training step
 gives K4 with ``TPU_PALLAS_DW`` (chip_smoke.py's K4_SHAPES, 5 launches a
 step) and prints the per-step totals; ``--shape`` is one square map of B
 images, C input and F output channels, H x H pixels. Inputs, from numpy
-seed 0: x [B, C, H, H] and dy [B, F, H, H] ~ N(0, 1) in bfloat16, the
-flagship's compute type (chip_smoke.py phase 11 also checks float32).
+seed 0: x [B, C, H, H] and dy [B, F, H, H] ~ N(0, 1) in ``--dtype``:
+bfloat16, the flagship's compute type (the bf16 body), or float32 (the
+float32 body, 3xTF32 on the tensor cores, which a run with
+TPU_COMPUTE_DTYPE float32 and TPU_PALLAS_DW launches).
 
 Parity comes first: K4 (``dw3x3_kernel``) against ``dw3x3_reference`` at
 |d| <= 1e-3 |ref| + 1e-4 max|ref|, and two calls on the same inputs
-bit-identical; a miss raises. Then the times, CUDA events, best of two runs
-of each function in turns (kernel, cuDNN, plain, plain, cuDNN, kernel):
-K4, cuDNN's weight gradient (``aten.convolution_backward``; the yardstick,
-never called by the port) and the plain version. Each line gives the
-bound, max(operations / 989 TFLOP/s, bytes / 3.35 TB/s) with x and dy
-read once and dW written once (H100 SXM bf16 peaks at 700 W), and the
-kernel's time over the bound and over cuDNN's.
+bit-identical; a miss raises. In float32 each line also gives the max
+error of K4 and of the float32 plain version against the same contraction
+in float64 (the float32 body's faithfulness). Then the times, CUDA events,
+best of two runs of each function in turns (kernel, cuDNN, plain, plain,
+cuDNN, kernel): K4, cuDNN's weight gradient (``aten.convolution_backward``;
+the yardstick, never called by the port; in float32 with TF32 off, set
+explicitly) and the plain version. Each line gives the bound,
+max(operations / peak, bytes / 3.35 TB/s) with x and dy read once and dW
+written once, the peak 989 TFLOP/s for bf16 and, for float32, 495 TFLOP/s
+of TF32 with each product done three times (3xTF32; H100 SXM peaks at 700
+W), and the kernel's time over the bound and over cuDNN's.
 
 With ``--profile`` it also records 20 calls of K4 and of cuDNN's weight
 gradient under torch.profiler at each shape and prints their device time
@@ -55,7 +61,8 @@ from text2img_ekl_tpu_torch.ops import conv_dw  # noqa: E402
 FLAGSHIP = (((32, 64, 64, 128), 2), ((32, 64, 64, 64), 2),
             ((32, 64, 128, 64), 1))
 RTOL, ATOL = 1e-3, 1e-4
-BF16_FLOPS, HBM_BYTES = 989e12, 3.35e12
+BF16_FLOPS, TF32_FLOPS, HBM_BYTES = 989e12, 495e12, 3.35e12
+DTYPES = {'bfloat16': torch.bfloat16, 'float32': torch.float32}
 WARM, TIMED = 3, 10  # calls before a timed run, calls per timed run
 
 
@@ -63,6 +70,8 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--shape', type=str, default=None, help='B,C,H,F')
     ap.add_argument('--device', choices=('cuda', 'cpu'), default='cuda')
+    ap.add_argument('--dtype', choices=tuple(DTYPES), default='bfloat16',
+                    help='the inputs\' type: which body of K4 runs')
     ap.add_argument('--profile', action='store_true',
                     help='device time per call by kernel (torch.profiler)')
     args = ap.parse_args(argv)
@@ -71,13 +80,17 @@ def parse_args(argv=None):
     return args
 
 
-def bound(shape):
-    """(least ms, 'operations' or 'bytes') of one bf16 weight gradient."""
+def bound(shape, dtype=torch.bfloat16):
+    """(least ms, 'operations' or 'bytes') of one weight gradient: bf16 on
+    the tensor cores, float32 as three tf32 products (3xTF32)."""
     b, c, h, f = shape
     k = b * h * h
     flops = 2 * f * 9 * c * k
-    nbytes = 2 * k * (c + f) + 4 * f * c * 9
-    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES
+    size = torch.finfo(dtype).bits // 8
+    nbytes = size * k * (c + f) + 4 * f * c * 9
+    t_ops = (flops / BF16_FLOPS if dtype == torch.bfloat16
+             else 3 * flops / TF32_FLOPS)
+    t_bytes = nbytes / HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops >= t_bytes
                                        else 'bytes')
 
@@ -139,17 +152,18 @@ def device_us(fn, calls=20):
     return out
 
 
-def measure(shape, device, profile=False):
+def measure(shape, device, profile=False, dtype=torch.bfloat16):
     """Check and time K4 at one shape; returns a dict of max_abs_err, scale
-    (max|ref|), kernel_ms, library_ms, plain_ms, bound_ms, bound_by and,
-    with ``profile``, kernel_us and library_us (``device_us``)."""
+    (max|ref|), kernel_ms, library_ms, plain_ms, bound_ms, bound_by,
+    float32: f64_err (K4, plain) against the float64 contraction, and with
+    ``profile`` kernel_us and library_us (``device_us``)."""
     b, c, h, f = shape
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((b, c, h, h), dtype=np.float32))
     dy = torch.from_numpy(rng.standard_normal((b, f, h, h),
                                               dtype=np.float32))
-    x, dy = x.to(device).bfloat16(), dy.to(device).bfloat16()
-    wgt = torch.zeros((f, c, 3, 3), device=device, dtype=torch.bfloat16)
+    x, dy = x.to(device).to(dtype), dy.to(device).to(dtype)
+    wgt = torch.zeros((f, c, 3, 3), device=device, dtype=dtype)
 
     def kernel():
         return conv_dw.dw3x3(x, dy)
@@ -174,13 +188,20 @@ def measure(shape, device, profile=False):
     if not torch.equal(out, again):
         raise AssertionError('K4 at %s: two calls on the same inputs differ'
                              % list(shape))
+    r = {}
+    if dtype == torch.float32:
+        exact = conv_dw.dw3x3_reference(x, dy, torch.float64)
+        r['f64_err'] = tuple(float((v.double() - exact).abs().max())
+                             for v in (out, ref))
+        del exact
     best = best_ms({'kernel': kernel, 'library': library, 'plain': plain},
                    device)
-    bound_ms, bound_by = bound(shape)
-    r = {'max_abs_err': float(diff.max()), 'scale': scale,
-         'kernel_ms': best['kernel'][0], 'library_ms': best['library'][0],
-         'plain_ms': best['plain'][0], 'all_ms': best,
-         'bound_ms': bound_ms, 'bound_by': bound_by}
+    bound_ms, bound_by = bound(shape, dtype)
+    r.update({'max_abs_err': float(diff.max()), 'scale': scale,
+              'kernel_ms': best['kernel'][0],
+              'library_ms': best['library'][0],
+              'plain_ms': best['plain'][0], 'all_ms': best,
+              'bound_ms': bound_ms, 'bound_by': bound_by})
     if profile:
         r['kernel_us'] = device_us(kernel)
         r['library_us'] = device_us(library)
@@ -191,13 +212,14 @@ def run(args):
     """Check, time and print every shape; returns [(shape, launches, the
     dict of ``measure``)]."""
     device = torch.device(args.device)
-    print('card: %s; K4 bf16' % card_name(device))
+    dtype = DTYPES[args.dtype]
+    print('card: %s; K4 %s' % (card_name(device), args.dtype))
     shapes = FLAGSHIP if args.shape is None else (
         (tuple(int(v) for v in args.shape.split(',')), 1),)
     rows = []
     lib = 'cuDNN wgrad' if device.type == 'cuda' else 'library (CPU)'
     for shape, n in shapes:
-        r = measure(shape, device, args.profile)
+        r = measure(shape, device, args.profile, dtype)
         rows.append((shape, n, r))
         b, c, h, f = shape
         line = ('K4 x [%d,%d,%d,%d] dy F=%d: max_abs_err %.3e (max|ref| '
@@ -206,6 +228,10 @@ def run(args):
                 % (b, c, h, h, f, r['max_abs_err'], r['scale'],
                    r['kernel_ms'], lib, r['library_ms'], r['plain_ms'],
                    TIMED))
+        if 'f64_err' in r:
+            line += ('; max_abs_err vs float64: kernel %.3e, plain float32 '
+                     '%.3e (ratio %.2f)' % (*r['f64_err'], r['f64_err'][0]
+                                            / r['f64_err'][1]))
         if device.type == 'cuda':
             line += ('; bound %.4f ms (%s); kernel / bound %.2f, kernel / '
                      'cuDNN %.3f' % (r['bound_ms'], r['bound_by'],
@@ -244,6 +270,8 @@ def main(argv=None) -> int:
                   '--device cpu to run the plain version on the CPU)',
                   file=sys.stderr)
             return 1
+        # float32 references, and cuDNN's float32 wgrad, without TF32
+        torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     run(args)
     return 0

@@ -3,6 +3,7 @@
 device time.
 
     python3 tools/profile_torch_sampler.py [--calls 5] [--train] [--switches]
+        [--dtype float32]
 
 Needs a CUDA card. Without ``--train``: builds the flagship eval generator
 (cfg/birds_2stg_splitz_cap_ca_eval.realcls.yml, full width, the config's
@@ -13,9 +14,13 @@ captions each) under torch.profiler. With ``--train``: records
 (cfg/birds_2stg_splitz_cap_ca.realcls.yml, full width, batch 32) on one
 synthetic batch, after two warm-up steps. ``--switches`` sets
 TPU_FUSED_BN_GLU and TPU_PALLAS_DW on the config (kernels K3 and K4).
+``--dtype float32`` sets TPU_COMPUTE_DTYPE and TPU_BN_DTYPE to float32 (the
+config's are bfloat16): with ``--train --switches`` that is the step which
+runs K4's float32 body (3xTF32), 5 launches a step at full width.
 Prints the device time by kernel group and the top kernels, the device's
 busy share of the window and the host operators with the most self CPU
-time, and writes a Chrome trace, {sampler,train}[_switches]_trace.json,
+time, and writes a Chrome trace,
+{sampler,train}[_switches][_float32]_trace.json,
 to the directory ``main`` names.
 """
 
@@ -28,7 +33,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUPS = (('K3 fused BN+GLU', ('bn_glu_kernel',)),
-          ('K4 conv weight gradient', ('dw_wgmma', 'dw_partial',
+          ('K4 conv weight gradient', ('dw_wgmma', 'dw_tf32x3',
                                        'dw_reduce')),
           ('K1-G capsule routing', ('routing_fwd_factored_cluster_kernel',)),
           ('W planes (K1-G, K2-G)', ('w_planes_kernel',)),
@@ -59,6 +64,9 @@ def main() -> int:
                     help='profile training steps instead of sampler calls')
     ap.add_argument('--switches', action='store_true',
                     help='set TPU_FUSED_BN_GLU and TPU_PALLAS_DW')
+    ap.add_argument('--dtype', choices=('config', 'float32'),
+                    default='config',
+                    help='float32: compute and BatchNorm in float32')
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -81,6 +89,8 @@ def main() -> int:
         cfg = cfg_from_file(TRAIN_CFG)
         cfg.TPU_SYNTHETIC_DATA = True
         cfg.TPU_FUSED_BN_GLU = cfg.TPU_PALLAS_DW = args.switches
+        if args.dtype == 'float32':
+            cfg.TPU_COMPUTE_DTYPE = cfg.TPU_BN_DTYPE = 'float32'
         trainer = CondGANTrainer(cfg, os.path.join(ROOT, 'output',
                                                    'profile_train'),
                                  device='cuda')
@@ -96,6 +106,8 @@ def main() -> int:
     else:
         cfg = cfg_from_file(CFG)
         cfg.TPU_FUSED_BN_GLU = cfg.TPU_PALLAS_DW = args.switches
+        if args.dtype == 'float32':
+            cfg.TPU_COMPUTE_DTYPE = cfg.TPU_BN_DTYPE = 'float32'
         G = build_generator(cfg, train_flag=False).to(dev)
         G.load_state_dict(_seeded_generator(cfg, build_generator, dev))
         G.eval()
@@ -156,9 +168,10 @@ def main() -> int:
                                     e.count // args.calls, e.key[:100]))
     out = os.path.join(ROOT, 'chiprun_out')
     os.makedirs(out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out, '%s%s_trace.json' % (
+    prof.export_chrome_trace(os.path.join(out, '%s%s%s_trace.json' % (
         'train' if args.train else 'sampler',
-        '_switches' if args.switches else '')))
+        '_switches' if args.switches else '',
+        '_float32' if args.dtype == 'float32' else '')))
     if args.train:
         return 0
 
