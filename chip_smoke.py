@@ -11,7 +11,7 @@ found; any failure raises and exits non-zero:
      process per source, all at once; print ptxas's registers and spills
      per kernel and, from cuobjdump -sass, the tensor-core instructions of
      the 3xTF32 product kernels of K1-D and K2-D and of K4's float32 body
-     (with its registers and spills);
+     (with its registers and spills, which must not grow);
   2. hold the factored capsule-routing forward (K1-G) to the plain PyTorch
      routing on the card, float32 with TF32 off, at the sampler's batch
      (B=320) and the training batch (B=32) of the generator head and at a
@@ -68,7 +68,9 @@ found; any failure raises and exits non-zero:
      is reported), both timed in turns;
  13. drive the training path with both switches on: train(max_steps=2) at
      full width, the launches of all six kernels per step; then the step
-     with both switches off and on, timed in turns in this one call;
+     with both switches off and on, timed in turns in this one call; and
+     one full-width step with both switches in float32 compute and
+     BatchNorm, the path of K4's float32 body, with its launches;
  14. drive the capsule microbenchmark's variant sweep
      (tools/bench_capsule_torch.py --variants) at the generator head, B=32
      and B=320, and the discriminator head, B=32: it holds the three
@@ -155,6 +157,11 @@ K3_TOL = 1e-6
 # K4 vs its plain version: |d| <= 1e-3 |ref| + 1e-4 max|ref| (float32 sums
 # over up to 524,288 terms in another order)
 K4_RTOL, K4_ATOL = 1e-3, 1e-4
+# ptxas's spill stores and loads (bytes) in K4's float32 body: its 128
+# registers hold the running sums, a K-step's partial and A's fragments, and
+# 16 bytes of run-loop state spill, reloaded once a run (none in the K-step
+# loop); more means a spill that may have moved into the loop
+K4_F32_SPILLS = (16, 56)
 # CUDA vs CPU step (float32): metrics |d| <= 1e-3 |ref| + 1e-5; first
 # moments per tensor ||d|| <= 1e-2 ||ref|| + 1e-5 max|ref over the net|
 # (cuDNN and oneDNN sum convolutions in other orders; a LeakyReLU input
@@ -527,6 +534,10 @@ def main() -> int:
           % ('; '.join(', '.join('%d x %s' % (n, op) for op, n in
                                  sorted(ops.items()))
                        for ops in sass.values()), regs, spill_st, spill_ld))
+    if spill_st > K4_F32_SPILLS[0] or spill_ld > K4_F32_SPILLS[1]:
+        raise AssertionError('K4\'s float32 body spills more than %d / %d '
+                             'bytes (stores / loads): %d / %d'
+                             % (*K4_F32_SPILLS, spill_st, spill_ld))
 
     # 2. K1-G against the plain routing
     rng = np.random.default_rng(0)
@@ -989,8 +1000,6 @@ def main() -> int:
             if device == 'cuda':
                 torch.cuda.synchronize()
                 step_launches = launches()
-                if switches:  # the float32 body's launches in a step
-                    f32_step_k4 = step_launches['K4']
             names = {p: n for n, p in st.G.named_parameters()}
             moments = [{names[p]: s['exp_avg'].cpu()
                         for p, s in st.g_opt.state.items()}]
@@ -1192,10 +1201,11 @@ def main() -> int:
                   '(3xTF32) %.4f ms, the float32 SIMT peak\'s %.4f ms and '
                   'cuDNN\'s float32 wgrad (TF32 off) %.4f ms'
                   % (tot[0], tot[2], simt, tot[3]))
-            # the float32 body's own record: launches in phase 9's float32
-            # step with the switches (the flagship trains in bf16)
+            # the float32 body's own record, totals over the 5 launches of
+            # a full-width float32 step; its launches are counted in that
+            # step (phase 13: the flagship trains in bf16)
             extra['K4'] = {'float32': {
-                'name': 'dw_tf32x3_kernel', 'launches': f32_step_k4,
+                'name': 'dw_tf32x3_kernel', 'launches': None,
                 'max_abs_err': max(k4[(dtype, xs, f)][5]
                                    for xs, f, _ in K4_SHAPES),
                 'ms': tot[0], 'plain_ms': tot[1], 'bound_ms': tot[2],
@@ -1341,7 +1351,30 @@ def main() -> int:
         print('phase 13 %s: %s at %.4f ms = %.1f%% of a step with both '
               'switches' % (name, timing[name][5], timing[name][0],
                             100 * timing[name][0] / min(step_times['on'])))
-    del trainer, fstate, runs, batch
+    # the float32 body's path: one full-width step with both switches and
+    # TPU_COMPUTE_DTYPE / TPU_BN_DTYPE float32, its launches counted alone;
+    # they are the float32 record's, whose times phase 11 totals over the
+    # same 5 launches
+    f32cfg = copy.deepcopy(fcfg)
+    f32cfg.TPU_COMPUTE_DTYPE = f32cfg.TPU_BN_DTYPE = 'float32'
+    f32state = create_train_state(f32cfg, 'cuda', seed=0)
+    f32step = make_train_step(f32cfg)
+    reset_launches()
+    m32, _ = f32step(f32state, batch, 3000)
+    torch.cuda.synchronize()
+    f32_launches = launches()
+    finite = all(np.isfinite(float(v)) for v in m32.values())
+    print('phase 13 train step with %s, float32 compute and BatchNorm, batch '
+          '%d: launches %s (want %s); finite losses %s (errD %.4f errG %.4f)'
+          % (SWITCHES, f32cfg.TRAIN.BATCH_SIZE, f32_launches, PER_STEP_FUSED,
+             finite, float(m32['errD']), float(m32['errG'])))
+    if f32_launches != PER_STEP_FUSED:
+        raise AssertionError('the float32 step with both switches did not '
+                             'launch the kernels as expected')
+    if not finite:
+        raise AssertionError('float32 step metrics %s' % m32)
+    extra['K4']['float32']['launches'] = f32_launches['K4']
+    del trainer, fstate, runs, batch, f32state
 
     # 14. the microbenchmark's variant sweep, the path that runs V
     reset_launches()

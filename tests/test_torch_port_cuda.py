@@ -41,9 +41,13 @@ max|ref|: float32 sums over B*H*W up to 524,288 terms in another order;
 two calls on the same inputs must agree bit for bit (fixed-order split-K).
 Its float32 body (3xTF32 on the tensor cores) must also be float32-faithful:
 its max error against the contraction in float64 at most twice that of
-the float32 ``dw3x3_reference`` (on the card: cuBLAS, TF32 off).
+the float32 ``dw3x3_reference`` (on the card: cuBLAS, TF32 off); and it is
+held within K4_EMULATION_ULPS float32 ulps of max|dW| to
+``dw3x3_tf32x3_reference``, the emulation of its arithmetic that the CPU
+tests (tests/test_torch_port_k4_f32.py) hold to the JAX package.
 """
 
+import math
 import os
 
 import numpy as np
@@ -63,6 +67,12 @@ from text2img_ekl_tpu_torch.train.step import make_train_step
 pytestmark = pytest.mark.cuda
 
 K2_RTOL, K2_ATOL = 1e-3, 1e-4
+# K4's float32 body against its emulation (dw3x3_tf32x3_reference), in
+# float32 ulps of max|dW|: the tensor cores sum a K-step's products in
+# another order and rounding than the emulation's float32 matmul: 4.5-7.0
+# ulps apart on an H100 at the flagship's three shapes and the two below
+# (tools/bench_conv_dw_torch.py --dtype float32 [--shape], seed 0)
+K4_EMULATION_ULPS = 8
 
 
 @pytest.fixture
@@ -832,6 +842,41 @@ def test_k4_float32_is_faithful_at_the_flagship(card, f):
     f32 = float((conv_dw.dw3x3_reference(x, dy).double() - exact)
                 .abs().max())
     assert err <= 2 * f32, (err, f32)
+
+
+def _ulps(out, ref):
+    """max |out - ref| in float32 ulps of max|ref| (2^(e - 23) for max|ref|
+    in [2^e, 2^(e+1)))."""
+    scale = float(ref.abs().max())
+    return float((out - ref).abs().max()) / 2.0 ** (
+        math.floor(math.log2(scale)) - 23)
+
+
+@pytest.mark.parametrize('shape', [
+    (4, 64, 64, 72),     # (B, C, H, F): runs of 16 K-steps, 2 x 2 tiles
+    (8, 16, 128, 64),    # runs of 32 K-steps across 4 column slabs a row
+])
+def test_k4_float32_matches_its_emulation(card, shape):
+    """The float32 body against ``dw3x3_tf32x3_reference`` with the card's
+    plan: the emulation that the CPU tests hold to JAX's ``dw3x3_v2`` and
+    to float64 has the body's split, terms, per-K-step partials and run
+    sums, so the two differ only by the order of the sums inside a K-step,
+    within K4_EMULATION_ULPS float32 ulps of max|dW|; single TF32 (hi.hi
+    alone) lies far outside that.
+    The plain float32 contraction also lies a few ulps from the emulation:
+    the bar cannot tell orders of summation apart, which the float64 rule
+    of test_k4_float32_is_faithful_at_the_flagship judges."""
+    b, c, h, f = shape
+    x, dy = _k4_inputs(shape, torch.float32, card)
+    p = conv_dw.plan(b, c, h, h, f, False,
+                     torch.cuda.get_device_properties(card)
+                     .multi_processor_count)
+    out = conv_dw.dw3x3(x, dy)
+    emulated = conv_dw.dw3x3_tf32x3_reference(x, dy, p.chunk)
+    single = conv_dw.dw3x3_tf32x3_reference(x, dy, p.chunk, terms=1)
+    torch.cuda.synchronize()
+    assert _ulps(out, emulated) <= K4_EMULATION_ULPS, _ulps(out, emulated)
+    assert _ulps(single, emulated) > 100 * K4_EMULATION_ULPS
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])

@@ -128,8 +128,9 @@ def dw3x3_tf32x3_reference(x: torch.Tensor, dy: torch.Tensor, chunk: int,
     columns) contracted as lo.hi + hi.lo + hi.hi into a fresh float32
     partial; the partials of each split-K run of ``chunk`` K-steps (the
     plan's) added one after another to a float32 sum from zero, and the
-    runs' sums added in order. ``terms=1`` keeps hi.hi alone (single
-    TF32). Up to the order of the sums inside a K-step."""
+    runs' sums added in order, on the inputs' device. ``terms=1`` keeps
+    hi.hi alone (single TF32). Up to the order of the sums inside a
+    K-step."""
     b, c, h, w = x.shape
     f = dy.shape[1]
     cols = F32_STEP_COLS
@@ -156,7 +157,7 @@ def dw3x3_tf32x3_reference(x: torch.Tensor, dy: torch.Tensor, chunk: int,
                     part
             taps.append(part)
     parts = torch.stack(taps, -1)  # [K-steps, F, C, 9]
-    out = torch.zeros(parts.shape[1:], dtype=torch.float32)
+    out = parts.new_zeros(parts.shape[1:])
     for run in parts.split(chunk):
         acc = torch.zeros_like(out)
         for p in run:

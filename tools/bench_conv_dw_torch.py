@@ -18,7 +18,9 @@ Parity comes first: K4 (``dw3x3_kernel``) against ``dw3x3_reference`` at
 |d| <= 1e-3 |ref| + 1e-4 max|ref|, and two calls on the same inputs
 bit-identical; a miss raises. In float32 each line also gives the max
 error of K4 and of the float32 plain version against the same contraction
-in float64 (the float32 body's faithfulness). Then the times, CUDA events,
+in float64 (the float32 body's faithfulness) and, on the card, their max
+distance from ``dw3x3_tf32x3_reference`` (the body's arithmetic emulated
+with the card's plan) in float32 ulps of max|dW|. Then the times, CUDA events,
 best of two runs of each function in turns (kernel, cuDNN, plain, plain,
 cuDNN, kernel): K4, cuDNN's weight gradient (``aten.convolution_backward``;
 the yardstick, never called by the port; in float32 with TF32 off, set
@@ -43,6 +45,7 @@ limit (nvidia-smi) first.
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import subprocess
 import sys
@@ -155,8 +158,9 @@ def device_us(fn, calls=20):
 def measure(shape, device, profile=False, dtype=torch.bfloat16):
     """Check and time K4 at one shape; returns a dict of max_abs_err, scale
     (max|ref|), kernel_ms, library_ms, plain_ms, bound_ms, bound_by,
-    float32: f64_err (K4, plain) against the float64 contraction, and with
-    ``profile`` kernel_us and library_us (``device_us``)."""
+    float32: f64_err (K4, plain) against the float64 contraction and, on
+    the card, emu_ulps (K4, plain) from the emulation, and with ``profile``
+    kernel_us and library_us (``device_us``)."""
     b, c, h, f = shape
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((b, c, h, h), dtype=np.float32))
@@ -194,6 +198,15 @@ def measure(shape, device, profile=False, dtype=torch.bfloat16):
         r['f64_err'] = tuple(float((v.double() - exact).abs().max())
                              for v in (out, ref))
         del exact
+        if device.type == 'cuda':
+            p = conv_dw.plan(b, c, h, h, f, False, torch.cuda
+                             .get_device_properties(device)
+                             .multi_processor_count)
+            emu = conv_dw.dw3x3_tf32x3_reference(x, dy, p.chunk)
+            ulp = 2.0 ** (math.floor(math.log2(float(emu.abs().max()))) - 23)
+            r['emu_ulps'] = tuple(float((v - emu).abs().max()) / ulp
+                                  for v in (out, ref))
+            del emu
     best = best_ms({'kernel': kernel, 'library': library, 'plain': plain},
                    device)
     bound_ms, bound_by = bound(shape, dtype)
@@ -232,6 +245,9 @@ def run(args):
             line += ('; max_abs_err vs float64: kernel %.3e, plain float32 '
                      '%.3e (ratio %.2f)' % (*r['f64_err'], r['f64_err'][0]
                                             / r['f64_err'][1]))
+        if 'emu_ulps' in r:
+            line += ('; vs its emulation: kernel %.2f, plain float32 %.2f '
+                     'float32 ulps of max|dW|' % r['emu_ulps'])
         if device.type == 'cuda':
             line += ('; bound %.4f ms (%s); kernel / bound %.2f, kernel / '
                      'cuDNN %.3f' % (r['bound_ms'], r['bound_by'],
