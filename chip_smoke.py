@@ -76,7 +76,16 @@ found; any failure raises and exits non-zero:
      and B=320, and the discriminator head, B=32: it holds the three
      batch-blocked routing variants (V-stored, V-seq, V-recompute) at every
      NB it sweeps to the plain routing at K1's bar and times each in turns
-     with K1; check the launches of every kernel in that run.
+     with K1; check the launches of every kernel in that run;
+ 15. checkpoint and resume on the card at the flagship's full width (bf16,
+     batch 32, a snapshot every epoch, no IS stream; every trainer's loader
+     repeats the same 2 batches): run A trains 4 steps; run B trains 2 and
+     writes state_epoch0, and a new trainer on its directory resumes (step
+     2, epoch 1) and trains 2 more, launching the kernels of 2 steps and a
+     run; A's and B's final parameters, BatchNorm buffers, Adam moments and
+     steps must be bit-identical; the snapshot's bytes on disk and its save
+     and restore seconds; a SIGTERM after a step writes a snapshot, train()
+     returns and the handlers are restored.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, where
@@ -460,6 +469,191 @@ def _step_batch(rng, cfg, dev):
              'eps_cls': put(rng.standard_normal((b, cfg.GAN.MANIFD_DIM),
                                                 dtype=np.float32))}
     return batch, draws
+
+
+class _Repeat:
+    """A loader whose every epoch hands out the same host batches; SIGTERM
+    is raised just before the batch of index ``signal_at`` (counted over
+    epochs), if given."""
+
+    def __init__(self, batches, signal_at=None):
+        self.batches, self.signal_at, self.n = batches, signal_at, 0
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        import signal
+        for batch in self.batches:
+            if self.n == self.signal_at:
+                signal.raise_signal(signal.SIGTERM)
+            self.n += 1
+            yield batch
+
+
+def _state_groups(state):
+    """{group: {name: tensor}} of a training state's checkpoint dict (G and
+    D parameters and BatchNorm buffers, Adam exp_avg and exp_avg_sq), and
+    {name: Adam step} for every parameter with Adam state."""
+    from text2img_ekl_tpu_torch.train.state import train_state_dict
+    sd = train_state_dict(state)
+    groups, steps = {}, {}
+    nets = [('G', state.G, sd['G'], sd['g_opt'])] + [
+        ('D%d' % i, D, d, o) for i, (D, d, o) in enumerate(
+            zip(state.Ds, sd['Ds'], sd['d_opts']))]
+    for net, module, msd, osd in nets:
+        kind = net[0]
+        names = [n for n, _ in module.named_parameters()]
+        for k, v in msd.items():
+            g = '%s parameters' % kind if k in names else \
+                '%s BatchNorm buffers' % kind
+            groups.setdefault(g, {})['%s.%s' % (net, k)] = v
+        for i, s in osd['state'].items():
+            name = '%s.%s' % (net, names[i])
+            for m in ('exp_avg', 'exp_avg_sq'):
+                groups.setdefault('%s Adam %s' % (kind, m), {})[name] = s[m]
+            steps[name] = float(s['step'])
+    return groups, steps
+
+
+def _compare_states(a, b):
+    """Per group of ``_state_groups``: (max |a - b|, bit-identical); and
+    whether the Adam steps are equal."""
+    import torch
+    ga, sa = _state_groups(a)
+    gb, sb = _state_groups(b)
+    out = {}
+    for g, ta in ga.items():
+        tb = gb[g]
+        if ta.keys() != tb.keys():
+            raise AssertionError('%s: other tensors' % g)
+        diff, same = 0.0, True
+        for k, v in ta.items():
+            w = tb[k]
+            if torch.equal(v, w):
+                continue
+            same = False
+            diff = max(diff, float((v.float() - w.float()).abs().max()))
+        out[g] = (diff, same)
+    return out, sa == sb
+
+
+def _checkpoint_phase(tcfg, reset_launches, launches, card):
+    """15. checkpoint and resume on the card, at the flagship's full width
+    with a snapshot every epoch and no IS stream: run A trains 4 steps;
+    run B trains 2, writes state_epoch0, and a new trainer on its directory
+    resumes (step 2, epoch 1) and trains 2 more. A's and B's final states
+    must be bit-identical, and the resumed run launch the kernels of 2
+    steps and a run.
+    Then a SIGTERM after a step saves and returns."""
+    import signal
+    import torch
+    from text2img_ekl_tpu_torch.data import DataLoader, SyntheticTextDataset
+    from text2img_ekl_tpu_torch.io_utils.checkpoint import (
+        STATE_FILE, restore_train_state, save_train_state)
+    from text2img_ekl_tpu_torch.train.state import create_train_state
+    from text2img_ekl_tpu_torch.train.trainer import CondGANTrainer
+
+    cfg = copy.deepcopy(tcfg)
+    cfg.TRAIN.SNAPSHOT_INTERVAL = 1
+    cfg.TPU_IS_EVERY = 0
+    bsz = cfg.TRAIN.BATCH_SIZE
+    ds = SyntheticTextDataset(
+        num_items=2 * bsz, base_size=cfg.TREE.BASE_SIZE,
+        branch_num=cfg.TREE.BRANCH_NUM, entity_dim=cfg.GAN.ENTITY_DIM,
+        text_dim=cfg.TEXT.DIMENSION, train_pairs=True,
+        uint8_output=bool(cfg.TPU_UINT8_INPUT))
+    # the loader draws each item's wrong image and caption from a generator
+    # seeded by (seed, epoch, index), and a new loader starts at epoch 0
+    # (ROADMAP F17): one epoch's batches, repeated, are the same in every
+    # epoch of every trainer
+    batches = list(DataLoader(ds, bsz, shuffle=False,
+                              num_workers=int(cfg.WORKERS)))
+    root = os.path.join(WORK, 'resume')
+
+    def trainer(name, signal_at=None):
+        return CondGANTrainer(cfg, os.path.join(root, name),
+                              data_loader=_Repeat(batches, signal_at),
+                              device='cuda')
+
+    a = trainer('a')
+    sa = a.train(max_steps=4)
+    ma = a.last_metrics
+    b1 = trainer('b')
+    b1.train(max_steps=2)
+    if os.listdir(b1.model_dir) != ['state_epoch0']:
+        raise AssertionError('run B wrote %s' % os.listdir(b1.model_dir))
+    b2 = trainer('b')
+    torch.cuda.synchronize()
+    reset_launches()
+    sb = b2.train(max_steps=2)
+    torch.cuda.synchronize()
+    got, mb = launches(), b2.last_metrics
+    want = {k: 2 * PER_STEP[k] + PER_RUN[k] for k in PER_STEP}
+    saved = b1.ckpt.path(0)
+    nbytes = os.path.getsize(os.path.join(saved, STATE_FILE))
+    # save and restore alone, timed, and the round trip on the card
+    probe = os.path.join(root, 'probe', 'state_epoch0')
+    fresh = create_train_state(cfg, 'cuda', seed=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_train_state(probe, b1.state)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restore_train_state(probe, fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    trip, trip_steps = _compare_states(b1.state, fresh)
+    if not (all(same for _, same in trip.values()) and trip_steps
+            and fresh.step == b1.state.step == 2):
+        raise AssertionError('save -> restore on the card changed the '
+                             'state: %s' % trip)
+    del fresh, b1
+    print('phase 15 snapshot of the flagship state (%s compute, batch %d, '
+          'step 2) on %s: %d bytes on disk (%.3f GB); save %.3f s, restore '
+          'into a fresh state (seed 1) %.3f s; the restored state is '
+          'bit-identical, Adam steps included'
+          % (cfg.TPU_COMPUTE_DTYPE, bsz, card, nbytes, nbytes / 1e9, save_s,
+             restore_s))
+    if got != want:
+        raise AssertionError('the resumed run launched %s, want %s (2 steps '
+                             'x %s + %s)' % (got, want, PER_STEP, PER_RUN))
+    groups, steps_same = _compare_states(sa, sb)
+    if sa.step != sb.step or not steps_same:
+        raise AssertionError('steps differ: run A %d, run B %d; Adam steps '
+                             'equal %s' % (sa.step, sb.step, steps_same))
+    same_metrics = ma == mb
+    for g, (diff, same) in groups.items():
+        print('phase 15 run A (4 steps) vs run B (2 + resume + 2): %s max '
+              'abs diff %.3e, %s' % (g, diff, 'bit-identical' if same else
+                                     'NOT bit-identical'))
+    print('phase 15 resumed run: state.step %d = %d, Adam steps equal; '
+          'metrics %s; launches %s (want %s)'
+          % (sb.step, sa.step, 'bit-identical' if same_metrics else
+             'differ', got, want))
+    if not (same_metrics and all(same for _, same in groups.values())):
+        raise AssertionError('the resumed run is not bit-identical to the '
+                             'uninterrupted one')
+    del sa, sb, a, b2
+
+    # SIGTERM after a step: a snapshot of that epoch, train() returns, the
+    # handlers are restored
+    before = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    c = trainer('c', signal_at=0)
+    sc = c.train(max_steps=2)
+    names = os.listdir(c.model_dir)
+    step_on_disk = torch.load(os.path.join(c.ckpt.path(0), STATE_FILE),
+                              map_location='cpu', weights_only=True,
+                              mmap=True)['step']
+    after = {s: signal.getsignal(s) for s in before}
+    print('phase 15 SIGTERM raised before the first batch: train() returned '
+          'after %d step(s), wrote %s (step %d on disk); handlers restored %s'
+          % (sc.step, names, step_on_disk, after == before))
+    if names != ['state_epoch0'] or sc.step != 1 or step_on_disk != 1 or \
+            after != before:
+        raise AssertionError('the SIGTERM save failed')
+    del sc, c
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -1419,6 +1613,9 @@ def main() -> int:
                     rec.update(ms=r['ms'], plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by=bound_by,
                                shape=list(shape), nb=nb)
+
+    # 15. checkpoint and resume on the card
+    _checkpoint_phase(tcfg, reset_launches, launches, card)
 
     shutil.rmtree(WORK, ignore_errors=True)
     bad = sorted(m for m in sys.modules

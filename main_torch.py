@@ -6,14 +6,21 @@
     python main_torch.py --cfg cfg/birds_2stg_splitz_cap_ca_eval.realcls.yml \
         --net_g path/to/netG.pth --synthetic --max_steps 2
 
-TRAIN.FLAG True trains: ``--max_steps`` G+D steps from a seeded state,
-with the epoch line and the epoch image grids under
-./output/<dataset>_<config>_<timestamp>/Image/. Until checkpoints (ROADMAP
-M10) and the IS tower (M11) are ported, a run must be bounded by
---max_steps and reach no snapshot epoch and no IS score. TRAIN.FLAG False
-samples the test split with the generator named by --net_g or TRAIN.NET_G
-(a reference netG .pth, or a state_dict saved by this package) and writes
-PNGs under ./output/<dataset>_<config>_<timestamp>/eval/.
+TRAIN.FLAG True trains to TRAIN.MAX_EPOCH (or for --max_steps G+D steps)
+from a seeded state, under ./output/<dataset>_<config>_<timestamp>/: the
+epoch line, the epoch image grids in Image/, the scalars every 100 steps in
+Log/metrics.jsonl, and full-state snapshots in Model/state_epoch<N> at
+every TRAIN.SNAPSHOT_INTERVAL-th epoch and every epoch past 199. SIGTERM or
+SIGINT saves a snapshot at the next step and stops. --net_g (TRAIN.NET_G)
+Model/state_epoch<N> resumes that run's full state at epoch N + 1; a
+reference netG .pth loads the generator only (TRAIN.NET_D the
+discriminators, from <NET_D>0.pth, <NET_D>1.pth). Until the IS tower
+(ROADMAP M11) is ported, a run that would score IS raises at start: set
+TPU_IS_EVERY 0 for a long run. TRAIN.FLAG False samples the test split
+with the generator named by --net_g or TRAIN.NET_G (a reference netG .pth,
+a state_dict saved by this package, or a snapshot directory, whose EMA is
+sampled with TPU_EMA_EVAL) and writes PNGs under
+./output/<dataset>_<config>_<timestamp>/eval/.
 """
 
 from __future__ import annotations
@@ -43,12 +50,13 @@ def parse_args(argv=None):
                         help="torch device, e.g. 'cuda', 'cuda:1' or 'cpu'")
     parser.add_argument('--data_dir', dest='data_dir', type=str, default='')
     parser.add_argument('--net_g', type=str, default='',
-                        help='generator .pth to sample (overrides '
-                             'TRAIN.NET_G)')
+                        help='TRAIN.NET_G: a generator .pth or a snapshot '
+                             'directory (Model/state_epoch<N>) to sample, '
+                             'or to resume training from')
     parser.add_argument('--manualSeed', type=int, help='manual seed')
     parser.add_argument('--max_steps', type=int, default=None,
-                        help='training: the G+D steps to take (required '
-                             'until ROADMAP M10/M11); sampling: the data '
+                        help='training: the G+D steps to take (default: '
+                             'to TRAIN.MAX_EPOCH); sampling: the data '
                              'batches to sample')
     parser.add_argument('--synthetic', action='store_true',
                         help='force the synthetic dataset')

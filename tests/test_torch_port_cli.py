@@ -53,11 +53,14 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'orbax', 'text2img_ekl_tpu'))\n"
-        "print(len(mods), bad)\n")
+        "need = {'text2img_ekl_tpu_torch.io_utils.checkpoint', "
+        "'text2img_ekl_tpu_torch.io_utils.logging'}\n"
+        "print(len(mods), need <= set(mods), bad)\n")
     proc = _run(['-c', code])
     assert proc.returncode == 0, proc.stderr
-    n, bad = proc.stdout.split(maxsplit=1)
-    assert int(n) >= 23 and bad.strip() == '[]', proc.stdout
+    n, covered, bad = proc.stdout.split(maxsplit=2)
+    assert int(n) >= 30 and covered == 'True' and bad.strip() == '[]', \
+        proc.stdout
 
 
 def _tiny_cfg(tmp_path, **test):
@@ -158,13 +161,16 @@ def test_trainer_builds_batchnorm_in_the_config_dtype(tmp_path, bn_dtype):
     assert bn.eval()(torch.randn(2, bn.weight.numel())).dtype == want
 
 
-def test_cli_refuses_what_is_not_ported_or_not_there(tmp_path):
+def test_cli_refuses_what_is_not_ported_or_not_there(tmp_path, monkeypatch):
     import main_torch
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='no CUDA device'):
             main_torch.main(['--cfg', EVAL_CFG, '--synthetic'])
-    with pytest.raises(NotImplementedError, match='M10'):  # unbounded
-        main_torch.main(['--cfg', TRAIN_CFG, '--device', 'cpu',
+    cfg_path = tmp_path / 'tiny_train.yml'
+    cfg_path.write_text(TINY_TRAIN_YML)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match='IS score.*M11'):
+        main_torch.main(['--cfg', str(cfg_path), '--device', 'cpu',
                          '--synthetic'])
     cfg = _tiny_cfg(tmp_path)
     cfg.TEST.EVAL_MODE = False
@@ -220,6 +226,9 @@ def test_cli_trains_a_bounded_run(tmp_path, monkeypatch, capsys):
 
 
 def test_train_moves_the_networks_and_refuses_unbounded_runs(tmp_path):
+    """Bounded and unbounded runs train, write the snapshots of their
+    snapshot epochs and auto-resume from the newest; runs that would score
+    IS or run BIG_EVAL still raise (ROADMAP M11)."""
     from text2img_ekl_tpu_torch.train.state import create_train_state
     from text2img_ekl_tpu_torch.train.trainer import CondGANTrainer
     cfg = cfg_from_file(TRAIN_CFG)
@@ -241,17 +250,57 @@ def test_train_moves_the_networks_and_refuses_unbounded_runs(tmp_path):
         assert any(not torch.equal(p, q) for p, q in
                    zip(a.parameters(), b.parameters()))
     assert len(os.listdir(trainer.image_dir)) == 1 + 2 * 2  # 2 epochs
-    for steps, match in ((None, 'M10'), (10 * 2, 'snapshot of epoch 9')):
-        with pytest.raises(NotImplementedError, match=match):
-            trainer.train(max_steps=steps)
-    # 3000 fakes pooled (batch 4, every 2nd step) before a snapshot
+    assert os.listdir(trainer.model_dir) == []
+    # with one batch an epoch, a run that reaches the snapshot of epoch 9
+    # trains and writes it (fresh: no snapshot to resume from yet)
+    one = DataLoader(SyntheticTextDataset(
+        num_items=4, base_size=64, branch_num=2,
+        entity_dim=cfg.GAN.ENTITY_DIM, text_dim=cfg.TEXT.DIMENSION,
+        train_pairs=True, uint8_output=True), 4, num_workers=1)
+    trainer = CondGANTrainer(cfg, str(tmp_path / 'one'), data_loader=one,
+                             device='cpu')
+    state = trainer.train(max_steps=10)
+    assert state.step == 10
+    assert os.listdir(trainer.model_dir) == ['state_epoch9']
+    # a run without max_steps trains to MAX_EPOCH, resuming at epoch 10
+    cfg.TRAIN.MAX_EPOCH = 12
+    cfg.TRAIN.SNAPSHOT_INTERVAL = 2
+    state = trainer.train(max_steps=None)
+    assert state.step == 12
+    assert sorted(os.listdir(trainer.model_dir)) == ['state_epoch11',
+                                                     'state_epoch9']
+    # 3000 fakes pooled (batch 4, every 2nd step) by epoch 14
+    cfg.TRAIN.MAX_EPOCH = 300
     trainer.num_batches = 100
-    cfg.TRAIN.SNAPSHOT_INTERVAL = 100
     with pytest.raises(NotImplementedError, match='IS score'):
         trainer.train(max_steps=1500)
     cfg.TRAIN.BIG_EVAL = True
     with pytest.raises(NotImplementedError, match='M11'):
         trainer.train(max_steps=1)
+
+
+def test_cli_trains_to_max_epoch_without_max_steps(tmp_path, monkeypatch,
+                                                  capsys):
+    """main_torch without --max_steps trains to TRAIN.MAX_EPOCH and writes
+    the snapshot of its last epoch (8 synthetic items: 2 batches an
+    epoch)."""
+    import main_torch
+    from text2img_ekl_tpu_torch.train import trainer as trainer_mod
+    cfg_path = tmp_path / 'tiny_train.yml'
+    cfg_path.write_text(TINY_TRAIN_YML.replace('MAX_EPOCH: 300',
+                                               'MAX_EPOCH: 2').replace(
+        'SNAPSHOT_INTERVAL: 10', 'SNAPSHOT_INTERVAL: 2'))
+    real = trainer_mod.SyntheticTextDataset
+    monkeypatch.setattr(trainer_mod, 'SyntheticTextDataset',
+                        lambda num_items, **kw: real(num_items=8, **kw))
+    monkeypatch.chdir(tmp_path)
+    main_torch.main(['--cfg', str(cfg_path), '--device', 'cpu',
+                     '--synthetic', '--manualSeed', '1'])
+    out = capsys.readouterr().out
+    assert '[1/2][BN=2][2 stages]' in out and 'Snapshot: save model ok' in out
+    runs = list((tmp_path / 'output').iterdir())
+    assert len(runs) == 1
+    assert sorted(os.listdir(runs[0] / 'Model')) == ['state_epoch1']
 
 
 def test_chip_smoke_refuses_without_a_card_or_the_repo(tmp_path):

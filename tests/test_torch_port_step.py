@@ -31,9 +31,17 @@ tests/test_torch_port_discriminator.py):
     lr * sign(g) wherever |g| >> eps, so a gradient entry near zero whose
     sign differs between the frameworks moves its parameter 2 lr apart, and
     step 2 runs on those parameters.
+
+Resume: one more port state is saved with ``save_train_state`` after step
+1 and restored into a fresh state of another seed before step 2. Its
+step 2 is bit-identical to the uninterrupted port run's (one CPU thread):
+metrics, fakes, BatchNorm statistics, and the whole state after it
+(parameters, buffers, Adam moments and steps); and within the step-2 bar
+of JAX's.
 """
 
 import os
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -48,7 +56,10 @@ from text2img_ekl_tpu.train import state as jstate
 from text2img_ekl_tpu.train import step as jstep
 from text2img_ekl_tpu_torch.io_utils.weights import (
     jax_generator_to_state_dict, jax_joint_d_to_state_dict)
-from text2img_ekl_tpu_torch.train.state import create_train_state
+from text2img_ekl_tpu_torch.io_utils.checkpoint import (restore_train_state,
+                                                        save_train_state)
+from text2img_ekl_tpu_torch.train.state import (create_train_state,
+                                                train_state_dict)
 from text2img_ekl_tpu_torch.train.step import make_train_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -134,8 +145,11 @@ def run_steps(cfg, steps, port_cfgs=(), compiler_options=None):
     statistics of both, after step 1 the Adam first moments; and the
     port's final state. Each of ``port_cfgs`` runs the port's step once
     more from the same weights, batch and draws (its records under
-    'port_cfgs'). ``compiler_options`` compiles JAX's step with those XLA
-    options."""
+    'port_cfgs'). From step 2 on, a port state saved after step 1 and
+    restored into a fresh state of seed 1 takes the same steps (its
+    records under 'resumed', None at step 1; its final state under
+    'resumed_state'). ``compiler_options`` compiles JAX's step with those
+    XLA options."""
     cond_width = jstep.cond_code_width(cfg)
     G = jgen.build_generator(cfg, train_flag=True)
     Ds = jdisc.build_discriminators(cfg, cond_width)
@@ -168,7 +182,8 @@ def run_steps(cfg, steps, port_cfgs=(), compiler_options=None):
     tfn = make_train_step(cfg)
     tbatch = _port_batch(batch)
     out = {'jax': [], 'port': [], 'sizes': sizes,
-           'port_cfgs': [[] for _ in port_cfgs]}
+           'port_cfgs': [[] for _ in port_cfgs], 'resumed': [None]}
+    rst = None
     for n in range(steps):
         rng = np.array([1, n], np.uint32)
         draws = _jax_draws(G, {'params': jst.g_params,
@@ -199,6 +214,13 @@ def run_steps(cfg, steps, port_cfgs=(), compiler_options=None):
             return rec
 
         port_rec = port_step(tfn, tst)
+        if n == 0 and steps > 1:
+            rst = create_train_state(cfg, 'cpu', seed=1)
+            with tempfile.TemporaryDirectory() as tmp:
+                save_train_state(os.path.join(tmp, 'state_epoch0'), tst)
+                restore_train_state(os.path.join(tmp, 'state_epoch0'), rst)
+        elif n > 0:
+            out['resumed'].append(port_step(tfn, rst))
         if n == 0:
             jax_rec['g_mu'] = jax_generator_to_state_dict(
                 {'params': jst.g_opt_state[0].mu})
@@ -210,6 +232,7 @@ def run_steps(cfg, steps, port_cfgs=(), compiler_options=None):
         for recs, (fn, st) in zip(out['port_cfgs'], extra):
             recs.append(port_step(fn, st))
     out['port_state'] = tst
+    out['resumed_state'] = rst
     return out
 
 
@@ -259,6 +282,52 @@ def test_adam_first_moments_match_jax(runs, net):
         bound = MOMENT_RTOL * float(torch.linalg.vector_norm(v)) + \
             MOMENT_ATOL * net_max
         assert err <= bound, (k, err, bound)
+
+
+def _flat(tree, prefix=''):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, '%s/%s' % (prefix, k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flat(v, '%s/%d' % (prefix, i))
+    else:
+        yield prefix, tree
+
+
+@pytest.mark.parametrize('n', range(1, STEPS))
+def test_resumed_step_is_bit_identical(runs, n):
+    """save -> fresh state (seed 1) -> restore -> step equals the
+    uninterrupted port step bit for bit, and JAX's within STEP2."""
+    got, want, jax_rec = runs['resumed'][n], runs['port'][n], runs['jax'][n]
+    assert got['metrics'] == want['metrics']
+    np.testing.assert_array_equal(got['fakes'], want['fakes'])
+    for g, w in zip([got['g_stats']] + got['d_stats'],
+                    [want['g_stats']] + want['d_stats']):
+        assert g.keys() == w.keys() and all(torch.equal(g[k], w[k])
+                                            for k in w)
+    for k, v in jax_rec['metrics'].items():
+        np.testing.assert_allclose(got['metrics'][k], v, err_msg=k, **STEP2)
+    np.testing.assert_allclose(got['fakes'], jax_rec['fakes'], **STEP2)
+    for k, v in jax_rec['g_stats'].items():
+        np.testing.assert_allclose(got['g_stats'][k].numpy(), v.numpy(),
+                                   err_msg=k, **STEP2)
+
+
+def test_resumed_state_is_bit_identical(runs):
+    """After the last step, the resumed state equals the uninterrupted one:
+    step, parameters, BatchNorm buffers, Adam moments and Adam steps."""
+    want = dict(_flat(train_state_dict(runs['port_state'])))
+    got = dict(_flat(train_state_dict(runs['resumed_state'])))
+    assert got.keys() == want.keys()
+    kinds = {k.split('/')[-1].split('.')[-1] for k in want}
+    assert {'exp_avg', 'exp_avg_sq', 'step', 'running_mean'} <= kinds
+    for k, v in want.items():
+        if torch.is_tensor(v):
+            assert v.dtype == got[k].dtype and torch.equal(v, got[k]), k
+        else:
+            assert v == got[k], k
+    assert runs['resumed_state'].step == STEPS
 
 
 def test_step_refuses_what_is_not_ported():

@@ -4,22 +4,28 @@ Counterpart of ``CondGANTrainer`` in ``text2img_ekl_tpu/train/trainer.py``
 (the reference's cub_trainer_splitz_cap_ca.py:268-911) for the split-z
 strategy:
 
-- ``train(max_steps)`` runs the G+D step (``train/step.py``) over the
-  train split, prints the JAX epoch line and writes the epoch image grids
-  (train-mode samples that leave the BatchNorm buffers alone).
-  Checkpoints, auto-resume and SIGTERM saves wait for ROADMAP.md M10; the
-  in-training IS stream and ``BIG_EVAL`` wait for M11. Until then
-  ``train`` runs only a bounded number of steps that reaches no snapshot
-  epoch and no IS score, and raises at start otherwise.
+- ``train(max_steps)`` runs the G+D step (``train/step.py``)
+  over the train split to ``TRAIN.MAX_EPOCH`` (or fewer steps), prints the
+  JAX epoch line, writes the epoch image grids (train-mode samples that
+  leave the BatchNorm buffers alone), logs the scalars every 100 steps to
+  ``Log/metrics.jsonl`` and writes full-state snapshots to
+  ``Model/state_epoch<N>`` at the snapshot epochs. It resumes from
+  ``TRAIN.NET_G`` (a reference netG ``.pth``, or a checkpoint directory of
+  this package), loads ``TRAIN.NET_D``, or else resumes from the newest
+  snapshot under ``output_dir``; SIGTERM and SIGINT save a snapshot at the
+  next step boundary and return. The in-training IS stream and
+  ``BIG_EVAL`` wait for ROADMAP.md M11: ``train`` raises at start where
+  the run would score IS. Single process only (M13).
 - ``evaluate`` samples the test split to PNGs for the 'cls' and
-  'cls_share' patterns: each test batch samples its 10 captions in one
-  forward, quantises on the device, and writes one PNG per image under the
-  reference's directory and file names. Host noise comes from
-  ``np.random.default_rng(100)`` exactly as in the JAX package; device
-  draws (CA eps, class priors) come from a ``torch.Generator`` seeded per
-  sampler call. Super-grid sampling (``TEST.B_EXAMPLE``), direct
-  on-device scoring (``TPU_EVAL_DIRECT``), two-path eval and multi-host
-  eval are not ported yet (ROADMAP.md).
+  'cls_share' patterns with the generator of ``TRAIN.NET_G`` (a ``.pth`` or
+  a checkpoint directory, whose EMA it samples with ``TPU_EMA_EVAL``):
+  each test batch samples its 10 captions in one forward, quantises on the
+  device, and writes one PNG per image under the reference's directory and
+  file names. Host noise comes from ``np.random.default_rng(100)`` exactly
+  as in the JAX package; device draws (CA eps, class priors) come from a
+  ``torch.Generator`` seeded per sampler call. Super-grid sampling
+  (``TEST.B_EXAMPLE``), direct on-device scoring (``TPU_EVAL_DIRECT``),
+  two-path eval and multi-host eval are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from __future__ import annotations
 import itertools
 import os
 import re
+import signal
 import time
 from typing import Any, Dict, Optional
 
@@ -36,12 +43,17 @@ import torch
 from ..config import Config
 from ..data import DataLoader, SyntheticTextDataset, TextDataset
 from ..data.transforms import build_eval_transform, build_train_transform
+from ..io_utils.checkpoint import (CheckpointManager, parse_epoch_from_path,
+                                   restore_generator_state,
+                                   restore_train_state)
 from ..io_utils.images import save_image_grid, save_single_images
-from ..io_utils.weights import load_pth_generator
+from ..io_utils.logging import MetricsLogger
+from ..io_utils.weights import load_pth_discriminator, load_pth_generator
 from ..models.generator import build_generator
 from ..nn.blocks import frozen_running_stats
 from .sample import caption_sample
-from .state import TrainState, create_train_state
+from .state import (TrainState, create_train_state, ema_copy,
+                    resolve_restored_ema)
 from .step import check_step_config, make_train_step
 
 # captions sampled per test image (cub_trainer_splitz_cap_ca.py:826)
@@ -54,6 +66,9 @@ SAMPLER_SEED_STREAM = 100
 # the JAX trainer scores IS once this many fakes are pooled
 # (text2img_ekl_tpu/train/trainer.py:404)
 IS_MIN_IMAGES = 3000
+# steps between two records of the scalars (cub_trainer_splitz_cap_ca.py:
+# 458-460)
+LOG_EVERY = 100
 
 
 def _seed(stream: int, n: int) -> int:
@@ -77,7 +92,14 @@ class CondGANTrainer:
         self.last_metrics: Dict[str, float] = {}
         if cfg.TRAIN.FLAG:
             check_step_config(cfg)
+            self.model_dir = os.path.join(output_dir, 'Model')
             self.image_dir = os.path.join(output_dir, 'Image')
+            self.log_dir = os.path.join(output_dir, 'Log')
+            for d in (self.model_dir, self.image_dir, self.log_dir):
+                os.makedirs(d, exist_ok=True)
+            self.logger = MetricsLogger(self.log_dir)
+            self.ckpt = CheckpointManager(self.model_dir,
+                                          keep=cfg.TPU_KEEP_CHECKPOINTS)
         else:
             self.G = build_generator(cfg, train_flag=False).to(self.device)
 
@@ -144,67 +166,138 @@ class CondGANTrainer:
                                   dtype=np.float32)[labels]),
         }
 
-    def _check_bounded_run(self, max_steps: Optional[int]) -> None:
-        """Raise, before any work, where the JAX trainer would checkpoint
-        or score IS in this run (text2img_ekl_tpu/train/trainer.py:
-        398-419): those wait for ROADMAP.md M10 and M11."""
+    def _check_bounded_run(self, max_steps: Optional[int],
+                           start_epoch: int) -> None:
+        """Raise, before any step, where the JAX trainer would score IS in
+        this run from ``start_epoch``
+        (text2img_ekl_tpu/train/trainer.py:334-339, 404-419): the
+        Inception tower waits for ROADMAP.md M11."""
         cfg = self.cfg
-        if max_steps is None:
-            raise NotImplementedError(
-                'train() without max_steps would reach epoch snapshots '
-                '(ROADMAP.md M10) and the in-training IS score (M11); pass '
-                'a bounded max_steps')
-        if cfg.TRAIN.BIG_EVAL:
-            raise NotImplementedError('TRAIN.BIG_EVAL needs the Inception '
-                                      'tower: ROADMAP.md M11')
-        if cfg.TRAIN.NET_G or cfg.TRAIN.NET_D:
-            raise NotImplementedError('resuming from TRAIN.NET_G / NET_D is '
-                                      'not ported yet: ROADMAP.md M10')
         if self.num_batches < 1:
             raise ValueError('the train loader yields no batch of %d'
                              % self.batch_size)
         every = int(cfg.TPU_IS_EVERY)
-        pooled, left = 0, int(max_steps)
-        for epoch in range(cfg.TRAIN.MAX_EPOCH):
-            steps = min(left, self.num_batches)
-            interval = cfg.TRAIN.SNAPSHOT_INTERVAL
-            if epoch % interval == interval - 1 or epoch > 199:
+        if every <= 0:
+            return
+        pooled, taken = 0, 0
+        for epoch in range(start_epoch, cfg.TRAIN.MAX_EPOCH):
+            steps = self.num_batches
+            # the loop takes a step before it tests its bound
+            if max_steps is not None:
+                steps = max(1, min(steps, max_steps - taken))
+            pooled += (steps // every) * self.batch_size
+            if pooled >= IS_MIN_IMAGES:
                 raise NotImplementedError(
-                    'a run of %d steps reaches the snapshot of epoch %d: '
-                    'checkpoints are ROADMAP.md M10' % (max_steps, epoch))
-            if every > 0:
-                pooled += (steps // every) * self.batch_size
-                if pooled >= IS_MIN_IMAGES:
-                    raise NotImplementedError(
-                        'a run of %d steps reaches the in-training IS score '
-                        '(%d fakes pooled by epoch %d): ROADMAP.md M11'
-                        % (max_steps, pooled, epoch))
-            left -= steps
-            if left <= 0:
+                    'this run reaches the in-training IS score (%d fakes '
+                    'pooled by epoch %d, TPU_IS_EVERY %d): ROADMAP.md M11; '
+                    'set TPU_IS_EVERY 0 or bound the run'
+                    % (pooled, epoch, every))
+            taken += steps
+            if max_steps is not None and taken >= max_steps:
                 break
 
+    def _load_pth_generator(self, path: str, state: TrainState) -> None:
+        """A reference netG .pth into G (the Ds and the Adams keep their
+        fresh init: all that a reference snapshot carries); a live EMA slot
+        is re-seeded from the loaded weights, not left at the fresh
+        init."""
+        state.G.load_state_dict(load_pth_generator(path), strict=True)
+        if state.g_ema is not None:
+            state.g_ema = ema_copy(state.G)
+
+    def _load_pth_discriminators(self, prefix: str,
+                                 state: TrainState) -> None:
+        """Reference netD<i>.pth files, '%s%d.pth' % (NET_D, i), into the
+        Ds (cub_trainer_splitz_cap_ca.py:179-184)."""
+        for i, D in enumerate(state.Ds):
+            path = '%s%d.pth' % (prefix, i)
+            D.load_state_dict(load_pth_discriminator(path), strict=True)
+            print('Load D from: %s' % path)
+
     def train(self, max_steps: Optional[int] = None) -> TrainState:
-        """Take ``max_steps`` G+D steps from a fresh seeded state."""
+        """Train to ``TRAIN.MAX_EPOCH``, or for ``max_steps`` steps of this
+        call."""
         cfg = self.cfg
         if not cfg.TRAIN.FLAG:
             raise ValueError('train() needs TRAIN.FLAG True')
-        self._check_bounded_run(max_steps)
-        print('train: a bounded run of %d steps reaches no IS score and no '
-              'snapshot; it runs without the IS tower (ROADMAP.md M11)'
-              % max_steps)
+        if cfg.TRAIN.BIG_EVAL:
+            raise NotImplementedError('TRAIN.BIG_EVAL needs the Inception '
+                                      'tower: ROADMAP.md M11')
         state = self.state = create_train_state(cfg, self.device, seed=0)
+        start_epoch = 0
+        if cfg.TRAIN.NET_G:
+            # the reference parses the epoch from the file name and
+            # continues (cub_trainer_splitz_cap_ca.py:170-184); a checkpoint
+            # of this package restores the full state
+            if cfg.TRAIN.NET_G.endswith('.pth'):
+                self._load_pth_generator(cfg.TRAIN.NET_G, state)
+            else:
+                restore_train_state(cfg.TRAIN.NET_G, state)
+            start_epoch = parse_epoch_from_path(cfg.TRAIN.NET_G)
+            print('Load %s (resuming at epoch %d)'
+                  % (cfg.TRAIN.NET_G, start_epoch))
+        else:
+            latest = self.ckpt.latest()
+            if latest is not None:
+                self.ckpt.restore(state, latest)
+                start_epoch = state.step // max(1, self.num_batches)
+                print('Resumed from %s (epoch %d)' % (latest, start_epoch))
+        if cfg.TRAIN.NET_D:
+            self._load_pth_discriminators(cfg.TRAIN.NET_D, state)
+        resolve_restored_ema(state, cfg.TPU_EMA_DECAY)
+        self._check_bounded_run(max_steps, start_epoch)
         step_fn = make_train_step(cfg)
-        count = 0
-        for epoch in range(cfg.TRAIN.MAX_EPOCH):
+
+        # a SIGTERM / SIGINT asks for a snapshot at the next step boundary
+        # and a clean return (the reference loses everything since its last
+        # snapshot)
+        stop = {'flag': False}
+
+        def request_stop(signum, frame):
+            print('signal %d: checkpointing at next step boundary' % signum)
+            stop['flag'] = True
+
+        old_handlers = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                old_handlers[sig] = signal.signal(sig, request_stop)
+            except (ValueError, OSError):
+                pass  # not the main thread
+        try:
+            self._train_epochs(state, step_fn, start_epoch, stop, max_steps)
+        finally:
+            for sig, h in old_handlers.items():
+                signal.signal(sig, h)
+            self.logger.close()
+        return state
+
+    def _train_epochs(self, state: TrainState, step_fn, start_epoch: int,
+                      stop: Dict[str, bool],
+                      max_steps: Optional[int]) -> None:
+        cfg = self.cfg
+        count = state.step
+        taken = 0
+        for epoch in range(start_epoch, cfg.TRAIN.MAX_EPOCH):
             start_t = time.time()
             metrics: Dict[str, torch.Tensor] = {}
             last_batch = None
             for host_batch in self.data_loader:
                 last_batch = self._device_batch(host_batch)
+                # the draws are keyed on the step count, so a resumed run
+                # draws what the uninterrupted run draws
                 metrics, _ = step_fn(state, last_batch,
                                      _seed(STEP_SEED_STREAM, count))
                 count += 1
-                if count >= max_steps:
+                taken += 1
+                if count % LOG_EVERY == 0:
+                    self.logger.log_scalars(
+                        count, {k: float(v) for k, v in metrics.items()})
+                if stop['flag']:
+                    # resumes at the start of this epoch
+                    self.ckpt.save(state, epoch)
+                    print('checkpointed on signal; exiting train loop')
+                    return
+                if max_steps is not None and taken >= max_steps:
                     break
             m = self.last_metrics = {k: float(v) for k, v in metrics.items()}
             print('[%d/%d][BN=%d][%d stages]\n'
@@ -226,9 +319,12 @@ class CondGANTrainer:
             if last_batch is not None:
                 self._save_epoch_images(state, last_batch,
                                         _seed(GRID_SEED_STREAM, epoch), epoch)
-            if count >= max_steps:
+            interval = cfg.TRAIN.SNAPSHOT_INTERVAL
+            if epoch % interval == interval - 1 or epoch > 199:
+                self.ckpt.save(state, epoch)
+                print('Snapshot: save model ok')
+            if max_steps is not None and taken >= max_steps:
                 break
-        return state
 
     def _sample_like(self, state: TrainState, batch: Dict[str, Any],
                      seed: int):
@@ -281,8 +377,18 @@ class CondGANTrainer:
         if not cfg.TRAIN.NET_G:
             print('Error: the path for models is not found!')
             return None
-        self.G.load_state_dict(load_pth_generator(cfg.TRAIN.NET_G),
-                               strict=True)
+        if os.path.isdir(cfg.TRAIN.NET_G):
+            # G side only: an eval config need not describe the Ds that the
+            # checkpoint was trained with
+            ema = restore_generator_state(cfg.TRAIN.NET_G, self.G)
+            if cfg.TPU_EMA_EVAL and ema is not None:
+                # the averages, the live BatchNorm buffers (as
+                # train/state.py::eval_g_state_dict)
+                self.G.load_state_dict(dict(self.G.state_dict(), **ema),
+                                       strict=True)
+        else:
+            self.G.load_state_dict(load_pth_generator(cfg.TRAIN.NET_G),
+                                   strict=True)
         G = self.G.eval()
 
         save_dir = os.path.join(self.output_dir,
