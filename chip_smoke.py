@@ -85,7 +85,21 @@ found; any failure raises and exits non-zero:
      run; A's and B's final parameters, BatchNorm buffers, Adam moments and
      steps must be bit-identical; the snapshot's bytes on disk and its save
      and restore seconds; a SIGTERM after a step writes a snapshot, train()
-     returns and the handlers are restored.
+     returns and the handlers are restored;
+ 16. the Inception towers (random weights from a seed; no Inception
+     weights are in the repository): (a) the 51-class slim tower on 8
+     generator-range images at 128 px and the 1,008-class fid tower on 8
+     0..255 images, float32 on the card (TF32 off) against the CPU (pool_3,
+     probabilities, IS), and the bf16 in-training tower against float32;
+     (b) the flagship trains with TPU_IS_EVERY 1 for 6 epochs of its
+     16-batch synthetic epoch (96 steps, 3,072 pooled fakes): the IS is
+     printed once, at epoch 5, and logged, no protected snapshot is
+     written, and the kernels' launches per step do not change; then the
+     step with and without the stream, in turns; (c) evaluate with
+     TPU_EVAL_DIRECT on phase 3's config and weights (640 images, no PNG):
+     its one-split IS against is_of_dir_torch.py on phase 3's PNGs, its FID
+     against fid_torch.py --save_stats of that directory; (d) the tower's
+     images/s, float32 at batch 64 and bf16 at batch 32.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, where
@@ -656,6 +670,356 @@ def _checkpoint_phase(tcfg, reset_launches, launches, card):
     shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 16: the towers' bars. Card float32 against the CPU's: pool_3 and
+# logits |d| <= 1e-3 max|ref|, probabilities |d| <= 1e-4, IS 1e-4
+# relative; the float32 tower with cuDNN's TF32 on (PyTorch's default)
+# bit-identical to it with TF32 off (the tower turns TF32 off itself). The
+# bf16 in-training tower against the card's float32 one: pool_3 |d| <= 4e-2
+# max|ref| (the CPU's bf16 tower reads 1.4e-2 and 1.5e-2 from its float32
+# one on these inputs; the logits gap is printed), IS 1e-2 relative. Direct
+# eval against the PNG route: IS 1e-4 relative (the CLI prints 4
+# decimals), FID against the PNG directory's own statistics below 1e-3 of
+# their sigma's trace.
+TOWER_POOL_TOL, TOWER_PROB_TOL, TOWER_IS_RTOL = 1e-3, 1e-4, 1e-4
+BF16_POOL_RTOL, BF16_IS_RTOL = 4e-2, 1e-2
+DIRECT_IS_RTOL, DIRECT_FID_TRACE = 1e-4, 1e-3
+# the IS stream's run: TPU_IS_EVERY 1 over 6 epochs of the 16-batch
+# synthetic epoch, 96 steps and 3,072 pooled fakes: one score, at epoch 5
+STREAM_EPOCHS = 6
+# the gate's cost per step: pairs of 5-step turns without and with it
+GATE_PAIRS = 12
+
+
+def _captured(fn, *args, **kw):
+    """fn's result and what it printed; the print goes on to stdout."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    sys.stdout.write(buf.getvalue())
+    return out, buf.getvalue()
+
+
+def _printed(text, tag):
+    line = [ln for ln in text.splitlines() if ln.startswith(tag)][-1]
+    return [float(v) for v in line[len(tag):].split(' +- ')]
+
+
+def _tower_phase(card):
+    """16a. The towers on the card against the CPU, and bf16 against
+    float32."""
+    import torch
+    from text2img_ekl_tpu_torch.eval.inception_score import (
+        InceptionScorer, compute_inception_score)
+    from text2img_ekl_tpu_torch.io_utils.weights import (
+        RANDOM_INCEPTION_SEED, random_inception)
+    from text2img_ekl_tpu_torch.models.inception_v3 import (
+        preprocess_frozen, preprocess_gan_output)
+    gen = torch.Generator().manual_seed(16)
+    gan = torch.rand((8, 3, 128, 128), generator=gen) * 2 - 1
+    pixels = torch.randint(0, 256, (8, 128, 128, 3), generator=gen,
+                           dtype=torch.uint8)
+    for flavor, n, images in (('slim', 51, gan), ('fid', 1008, pixels)):
+        sd = random_inception(RANDOM_INCEPTION_SEED, n, flavor)
+        kw = dict(finetuned=flavor == 'slim', flavor=flavor)
+        scorers = {'cpu': InceptionScorer(sd, n, device='cpu', **kw),
+                   'cuda': InceptionScorer(sd, n, device='cuda', **kw),
+                   'bf16': InceptionScorer(sd, n, device='cuda',
+                                           dtype=torch.bfloat16, **kw)}
+        probs, logits, pool3 = {}, {}, {}
+        for name, s in scorers.items():
+            x = images.to(s.device)
+            with torch.no_grad():
+                if flavor == 'slim':
+                    probs[name] = s.predict_batch(x).cpu()
+                    pre = preprocess_gan_output(x)
+                else:
+                    probs[name] = s.predict_uint8(x).cpu()
+                    pre = preprocess_frozen(x.permute(0, 3, 1, 2))
+                logits[name], ep = s.model(pre)
+                logits[name], pool3[name] = logits[name].cpu(), \
+                    ep['pool_3'].cpu()
+                if name == 'cuda':
+                    torch.backends.cudnn.allow_tf32 = True
+                    try:
+                        tf32_on = s.model(pre)[1]['pool_3'].cpu()
+                    finally:
+                        torch.backends.cudnn.allow_tf32 = False
+        score = {k: compute_inception_score(p.numpy())[0]
+                 for k, p in probs.items()}
+
+        def gap(got, ref):
+            return (float((got - ref).abs().max()), float(ref.abs().max()))
+
+        pool_err, ref = gap(pool3['cuda'], pool3['cpu'])
+        logit_err, logit_ref = gap(logits['cuda'], logits['cpu'])
+        prob_err = float((probs['cuda'] - probs['cpu']).abs().max())
+        bf16_pool, bf16_ref = gap(pool3['bf16'], pool3['cuda'])
+        bf16_logit, bf16_logit_ref = gap(logits['bf16'], logits['cuda'])
+        bf16_prob = float((probs['bf16'] - probs['cuda']).abs().max())
+        print('phase 16a %s tower (%d classes, 8 images %s) on %s, float32 '
+              'vs the CPU: pool_3 max|ref| %.4e, max_abs_err %.3e (bar %.1e '
+              'x max|ref|); logits max|ref| %.4e, max_abs_err %.3e (same '
+              'bar); probabilities max_abs_err %.3e (bar %.0e); IS %.8f vs '
+              '%.8f; with cuDNN TF32 on, pool_3 bit-identical: %s'
+              % (flavor, n, 'in [-1, 1] at 128 px' if flavor == 'slim' else
+                 'of 0..255 at 128 px', card, ref, pool_err, TOWER_POOL_TOL,
+                 logit_ref, logit_err, prob_err, TOWER_PROB_TOL,
+                 score['cuda'], score['cpu'], torch.equal(tf32_on,
+                                                          pool3['cuda'])))
+        print('phase 16a %s bf16 tower vs float32 on %s: pool_3 max_abs_err '
+              '%.3e, %.3e of max|ref| (bar %.0e); logits %.3e of max|ref| '
+              '%.4e; largest probability gap %.3e; IS %.8f vs %.8f (bar %.0e '
+              'relative)'
+              % (flavor, card, bf16_pool, bf16_pool / bf16_ref,
+                 BF16_POOL_RTOL, bf16_logit / bf16_logit_ref, bf16_logit_ref,
+                 bf16_prob, score['bf16'], score['cuda'], BF16_IS_RTOL))
+        if not (pool_err <= TOWER_POOL_TOL * ref
+                and logit_err <= TOWER_POOL_TOL * logit_ref
+                and prob_err <= TOWER_PROB_TOL
+                and abs(score['cuda'] - score['cpu'])
+                <= TOWER_IS_RTOL * score['cpu']):
+            raise AssertionError('the %s tower on the card disagrees with '
+                                 'the CPU' % flavor)
+        if not torch.equal(tf32_on, pool3['cuda']):
+            raise AssertionError('the float32 %s tower ran in TF32' % flavor)
+        if not (bf16_pool <= BF16_POOL_RTOL * bf16_ref
+                and abs(score['bf16'] - score['cuda'])
+                <= BF16_IS_RTOL * score['cuda']):
+            raise AssertionError('the bf16 %s tower disagrees with the '
+                                 'float32 one' % flavor)
+
+
+def _device_busy_ms(fn, calls=5):
+    """The device's busy time a call of ``fn``: the sum of the device
+    activities torch.profiler records over ``calls`` calls, after one;
+    0 where it records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if str(e.device_type).endswith('CUDA')) / calls / 1e3
+
+
+def _tower_rate_phase(card):
+    """16d. images/s of the tower (slim, 51 classes) on 128 px generator
+    output, float32 and bf16, each at batch 32 (the IS stream's) and 64;
+    beside each, the device's busy time a batch (the sum of its kernels'
+    times, torch.profiler) and its share of the batch's time."""
+    import torch
+    from text2img_ekl_tpu_torch.eval.inception_score import InceptionScorer
+    from text2img_ekl_tpu_torch.io_utils.weights import (
+        RANDOM_INCEPTION_SEED, random_inception)
+    sd = random_inception(RANDOM_INCEPTION_SEED, 51, 'slim')
+    rates = {}
+    for name, dtype in (('float32', None), ('bf16', torch.bfloat16)):
+        s = InceptionScorer(sd, 51, dtype=dtype, device='cuda')
+        for bsz in (32, 64):
+            x = torch.rand((bsz, 3, 128, 128), device='cuda') * 2 - 1
+            best = _best_ms({'tower': lambda: s.predict_batch(x)}, 10)
+            busy = _device_busy_ms(lambda: s.predict_batch(x))
+            ms = best['tower'][0]
+            rates[name, bsz] = bsz * 1e3 / ms
+            print('phase 16d tower %s at batch %d on %s: %.3f ms a batch '
+                  '(best of 2 x 10, CUDA events; all %s), %.1f images/s; '
+                  'device busy %s'
+                  % (name, bsz, card, ms,
+                     ['%.3f' % t for t in best['tower'][1]], rates[name, bsz],
+                     '%.3f ms a batch (%.0f %% of the best)'
+                     % (busy, 100 * busy / ms) if busy else 'not recorded'))
+    return rates
+
+
+def _is_stream_phase(tcfg, reset_launches, launches, card):
+    """16b. The flagship trains with the IS stream on every step until the
+    gate scores once; then the step with and without the stream, in
+    turns."""
+    import numpy as np
+    import torch
+    from text2img_ekl_tpu_torch.train.step import make_train_step
+    from text2img_ekl_tpu_torch.train.trainer import CondGANTrainer
+    cfg = copy.deepcopy(tcfg)
+    cfg.TPU_IS_EVERY = 1
+    cfg.TRAIN.MAX_EPOCH = STREAM_EPOCHS
+    cfg.TRAIN.SNAPSHOT_INTERVAL = 1000
+    trainer = CondGANTrainer(cfg, os.path.join(WORK, 'is_stream'),
+                             device='cuda')
+    assert trainer.num_batches == 16, trainer.num_batches
+    # the synthetic epoch's batches, drawn once and handed out every epoch:
+    # the host-side synthesis of 512 images an epoch would take most of the
+    # phase's time
+    trainer.data_loader = _Repeat(list(trainer.data_loader))
+    steps = STREAM_EPOCHS * trainer.num_batches
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, out = _captured(trainer.train)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    got = launches()
+    want = {k: steps * PER_STEP[k] + STREAM_EPOCHS * PER_RUN[k]
+            for k in PER_STEP}
+    with open(os.path.join(trainer.log_dir, 'metrics.jsonl')) as f:
+        logged = [json.loads(line) for line in f]
+    scores = [m['inception_score'] for m in logged if 'inception_score' in m]
+    model = os.listdir(trainer.model_dir)
+    lines = [ln for ln in out.splitlines() if ' IS: ' in ln]
+    print('phase 16b train() with TPU_IS_EVERY 1, %s compute, batch %d, %d '
+          'epochs of %d batches: %.2f s for %d steps; IS lines %s; '
+          'inception_score logged %s; Model/ holds %s; launches %s (want %s)'
+          % (cfg.TPU_COMPUTE_DTYPE, cfg.TRAIN.BATCH_SIZE, STREAM_EPOCHS,
+             trainer.num_batches, train_s, state.step, lines, scores, model,
+             got, want))
+    if state.step != steps or len(lines) != 1 or \
+            not lines[0].startswith('Epoch5 IS: '):
+        raise AssertionError('the IS stream did not score once, at epoch 5')
+    if len(scores) != 1 or not np.isfinite(scores[0]):
+        raise AssertionError('inception_score was not logged: %s' % logged)
+    if 'Inception weights are random' not in out or any(
+            m.startswith('.protect_epoch') for m in model):
+        raise AssertionError('random weights must not write a protected '
+                             'snapshot: %s' % model)
+    if got != want:
+        raise AssertionError('the IS stream changed the kernels\' launches '
+                             'per step')
+
+    # the step alone and the step with the stream's tower forward, in
+    # turns; and the tower forward alone, by CUDA events
+    step_fn = make_train_step(cfg)
+    batch = trainer._device_batch(next(iter(trainer.data_loader)))
+    scorer, _ = _captured(trainer._make_is_scorer)
+    seed = [4000]
+
+    def five(with_is):
+        for _ in range(5):
+            seed[0] += 1
+            _, fakes = step_fn(state, batch, seed[0])
+            if with_is:
+                scorer.add(fakes)
+
+    # GATE_PAIRS pairs of 5-step turns, in the order (off, on), (on, off),
+    # ...: the gate's cost is read from the differences within pairs, so
+    # that a drift of the host's speed across the phase cancels
+    for with_is in (False, True):
+        five(with_is)  # warm up
+    torch.cuda.synchronize()
+    times = {False: [], True: []}
+    for pair in range(GATE_PAIRS):
+        for with_is in ((False, True) if pair % 2 == 0 else (True, False)):
+            t0 = time.perf_counter()
+            five(with_is)
+            torch.cuda.synchronize()
+            times[with_is].append((time.perf_counter() - t0) / 5 * 1e3)
+    fakes = step_fn(state, batch, 5000)[1]
+    add = _best_ms({'add': lambda: scorer.add(fakes)}, 10)['add']
+    # what the stream asks of the host: the add's dispatch, no synchronize
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        scorer.add(fakes)
+    dispatch = (time.perf_counter() - t0) / 10 * 1e3
+    torch.cuda.synchronize()
+    diffs = sorted(b - a for a, b in zip(times[False], times[True]))
+    off, on = float(np.median(times[False])), float(np.median(times[True]))
+    cost = float(np.median(diffs))
+    print('phase 16b train step on %s, %s compute, batch %d, %d pairs of '
+          '5-step turns (off, on; on, off; ...; host clock with '
+          'synchronize): without the stream median %.2f ms (all %s), with '
+          'it median %.2f ms (all %s); the gate costs a median %.2f ms a '
+          'step at TPU_IS_EVERY 1 over the pairs (each pair: %s; %d of %d '
+          'positive), %.2f at the flagship\'s 2; the bf16 tower forward '
+          'alone %.3f ms (CUDA events, best of 2 x 10; all %s), its '
+          'dispatch on the host %.3f ms (10 calls, no synchronize)'
+          % (card, cfg.TPU_COMPUTE_DTYPE, cfg.TRAIN.BATCH_SIZE, GATE_PAIRS,
+             off, ['%.2f' % t for t in times[False]], on,
+             ['%.2f' % t for t in times[True]], cost,
+             ['%.2f' % d for d in diffs], sum(d > 0 for d in diffs),
+             len(diffs), cost / 2, add[0], ['%.3f' % t for t in add[1]],
+             dispatch))
+    return {'off_ms': off, 'on_ms': on, 'cost_ms': cost, 'add_ms': add[0],
+            'dispatch_ms': dispatch}
+
+
+def _direct_eval_phase(ecfg, png_dir, reset_launches, launches, card):
+    """16c. Direct evaluation against the PNG route of phase 3, with the
+    same random towers; the CLIs score phase 3's directory."""
+    import numpy as np
+    import torch
+    import fid_torch
+    import is_of_dir_torch
+    from text2img_ekl_tpu_torch.train.trainer import CondGANTrainer
+    _, out = _captured(is_of_dir_torch.main, ['--dir', png_dir, '--splits',
+                                              '1'])
+    png_is = _printed(out, 'IS: ')[0]
+    stats = os.path.join(WORK, 'png_dir_stats.npz')
+    _captured(fid_torch.main, [png_dir, png_dir, '--save_stats', stats])
+    with np.load(stats) as f:
+        trace = float(np.trace(f['sigma']))
+    cfg = copy.deepcopy(ecfg)
+    cfg.TPU_EVAL_DIRECT = True
+    cfg.TPU_EVAL_FID_STATS = stats
+    trainer = CondGANTrainer(cfg, os.path.join(WORK, 'direct_eval'),
+                             device='cuda')
+    # the directory's IS takes one split, where direct eval's JSON takes
+    # ten (its 640 images): the 10-split IS depends on the images' order,
+    # which a directory sorts by name; keep the direct tower's one-split
+    # score too
+    one_split = []
+    make = trainer._make_is_scorer
+
+    def keep(dtype=None):
+        s = make(dtype)
+        score = s.score
+
+        def both(num_splits=1, reset=True):
+            one_split.append(score(1, reset=False)[0])
+            return score(num_splits, reset)
+        s.score = both
+        return s
+
+    trainer._make_is_scorer = keep
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    save_dir, out = _captured(trainer.evaluate, max_batches=BATCHES)
+    torch.cuda.synchronize()
+    direct_s = time.perf_counter() - t0
+    got = launches()
+    with open(os.path.join(save_dir, 'direct_scores.json')) as f:
+        scores = json.load(f)
+    pngs = [f for _, _, files in os.walk(save_dir) for f in files
+            if f.endswith('.png')]
+    want_images = BATCHES * cfg.TRAIN.BATCH_SIZE * 10
+    print('phase 16c evaluate with TPU_EVAL_DIRECT on %s: %.2f s for %d '
+          'images (%d PNGs written), launches %s; direct_scores.json %s; '
+          'one-split IS %.6f vs is_of_dir_torch on phase 3\'s PNGs %.4f '
+          '(bar %.0e relative); FID against fid_torch --save_stats of that '
+          'directory %.4e, trace(sigma) %.4e (bar %.0e x trace)'
+          % (card, direct_s, scores.get('images', 0), len(pngs), got, scores,
+             one_split[0] if one_split else float('nan'), png_is,
+             DIRECT_IS_RTOL, scores.get('fid', float('nan')), trace,
+             DIRECT_FID_TRACE))
+    if got != dict(PER_RUN, **{'K1-G': BATCHES}):
+        raise AssertionError('direct eval did not launch K1-G once per '
+                             'sampler call')
+    if pngs or scores.get('images') != want_images or \
+            scores.get('is_splits') != 10 or scores.get('real_is_weights'):
+        raise AssertionError('direct eval wrote %s' % scores)
+    if abs(one_split[0] - png_is) > DIRECT_IS_RTOL * png_is:
+        raise AssertionError('direct IS disagrees with the PNG route')
+    if not abs(scores['fid']) < DIRECT_FID_TRACE * trace:
+        raise AssertionError('direct FID against the PNG route\'s own '
+                             'statistics is not ~0')
+    return {'seconds': direct_s, 'is': scores['is_mean'],
+            'fid': scores['fid']}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -860,6 +1224,8 @@ def main() -> int:
         raise AssertionError('K1-G did not run once per sampler call')
     if len(pngs) != want or shapes != {(cfg.imsize, cfg.imsize, 3)}:
         raise AssertionError('evaluate wrote the wrong PNGs')
+    # phase 16 scores these PNGs against direct eval on the same weights
+    png_dir, eval_cfg = save_dir, copy.deepcopy(cfg)
 
     # 4. CUDA generator (K1) against CPU generator (plain), float32; and
     #    the config's compute dtype on the card against the same reference
@@ -1616,6 +1982,13 @@ def main() -> int:
 
     # 15. checkpoint and resume on the card
     _checkpoint_phase(tcfg, reset_launches, launches, card)
+
+    # 16. the Inception towers: on the card against the CPU, the IS stream
+    #     at full width, direct eval against phase 3's PNGs, images/s
+    _tower_phase(card)
+    _is_stream_phase(tcfg, reset_launches, launches, card)
+    _direct_eval_phase(eval_cfg, png_dir, reset_launches, launches, card)
+    _tower_rate_phase(card)
 
     shutil.rmtree(WORK, ignore_errors=True)
     bad = sorted(m for m in sys.modules

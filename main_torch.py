@@ -14,13 +14,16 @@ every TRAIN.SNAPSHOT_INTERVAL-th epoch and every epoch past 199. SIGTERM or
 SIGINT saves a snapshot at the next step and stops. --net_g (TRAIN.NET_G)
 Model/state_epoch<N> resumes that run's full state at epoch N + 1; a
 reference netG .pth loads the generator only (TRAIN.NET_D the
-discriminators, from <NET_D>0.pth, <NET_D>1.pth). Until the IS tower
-(ROADMAP M11) is ported, a run that would score IS raises at start: set
-TPU_IS_EVERY 0 for a long run. TRAIN.FLAG False samples the test split
-with the generator named by --net_g or TRAIN.NET_G (a reference netG .pth,
-a state_dict saved by this package, or a snapshot directory, whose EMA is
+discriminators, from <NET_D>0.pth, <NET_D>1.pth). Every TPU_IS_EVERY steps
+the step's fakes go through the Inception tower; an epoch with 3,000 pooled
+prints and logs the IS (the tower's weights come from T2I_INCEPTION_CKPT, a
+TF-slim checkpoint that is not in the repository, or else are random and
+the IS is relative only). TRAIN.FLAG False samples the test split with the
+generator named by --net_g or TRAIN.NET_G (a reference netG .pth, a
+state_dict saved by this package, or a snapshot directory, whose EMA is
 sampled with TPU_EMA_EVAL) and writes PNGs under
-./output/<dataset>_<config>_<timestamp>/eval/.
+./output/<dataset>_<config>_<timestamp>/eval/, or, with TPU_EVAL_DIRECT,
+scores them on the device into direct_scores.json there.
 """
 
 from __future__ import annotations

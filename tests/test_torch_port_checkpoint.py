@@ -266,7 +266,8 @@ def test_sigterm_mid_epoch_saves_and_resumes_that_epoch(tmp_path, capsys):
             if not restored:
                 restored.update(st.G.state_dict(), step=st.step, seed=seed)
             st.step += 1
-            return {}, None
+            # the step's top-stage fakes, which the IS stream takes
+            return {}, torch.zeros(B, 3, 128, 128)
         return step
 
     import text2img_ekl_tpu_torch.train.trainer as trainer_mod
@@ -345,7 +346,8 @@ def test_net_g_and_net_d_resume(tmp_path, port_state, monkeypatch, capsys):
                                  [dict(D.state_dict()) for D in st.Ds],
                                  st.step, st.g_ema))
             st.step += 1
-            return {}, None
+            # the step's top-stage fakes, which the IS stream takes
+            return {}, torch.zeros(B, 3, 128, 128)
         return step
 
     monkeypatch.setattr(trainer_mod, 'make_train_step', fake_step)

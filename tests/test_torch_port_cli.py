@@ -1,7 +1,8 @@
 """The PyTorch port's entry points on the CPU: the evaluate loop and a
 bounded training run end to end at a tiny size, the refusals of the CLI,
-the trainer and chip_smoke, and that no port module, nor main_torch or
-chip_smoke, imports JAX or anything of the JAX package."""
+the trainer and chip_smoke, and that no port module, nor main_torch, the
+scoring CLIs or chip_smoke, imports JAX, anything of the JAX package,
+TensorFlow or protobuf."""
 
 import os
 import shutil
@@ -42,19 +43,37 @@ def _run(args, cwd=REPO, **env):
 
 
 def test_port_imports_no_jax():
+    """Every port module and entry point imports in an interpreter where
+    JAX, the JAX package, TensorFlow and protobuf cannot be imported, and
+    none of them is loaded afterwards."""
     code = (
         "import pkgutil, importlib, sys\n"
+        "BANNED = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
+        "'text2img_ekl_tpu', 'tensorflow')\n"
+        "def banned(name):\n"
+        "    return name.split('.')[0] in BANNED or "
+        "name.startswith('google.protobuf')\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if banned(name):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
         "import text2img_ekl_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for m in mods + ['text2img_ekl_tpu_torch.ops.capsule_variants', "
         "'main_torch', 'chip_smoke', 'tools.profile_torch_sampler', "
-        "'tools.bench_capsule_torch', 'tools.bench_conv_dw_torch']:\n"
+        "'tools.bench_capsule_torch', 'tools.bench_conv_dw_torch', "
+        "'inception_score_torch', 'fid_torch', 'is_of_dir_torch']:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'optax', 'orbax', 'text2img_ekl_tpu'))\n"
+        "bad = sorted(m for m in sys.modules if banned(m))\n"
         "need = {'text2img_ekl_tpu_torch.io_utils.checkpoint', "
-        "'text2img_ekl_tpu_torch.io_utils.logging'}\n"
+        "'text2img_ekl_tpu_torch.io_utils.logging', "
+        "'text2img_ekl_tpu_torch.models.inception_v3', "
+        "'text2img_ekl_tpu_torch.eval.convert_tf', "
+        "'text2img_ekl_tpu_torch.eval.tf_files', "
+        "'text2img_ekl_tpu_torch.eval.inception_score', "
+        "'text2img_ekl_tpu_torch.eval.fid'}\n"
         "print(len(mods), need <= set(mods), bad)\n")
     proc = _run(['-c', code])
     assert proc.returncode == 0, proc.stderr
@@ -166,10 +185,10 @@ def test_cli_refuses_what_is_not_ported_or_not_there(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='no CUDA device'):
             main_torch.main(['--cfg', EVAL_CFG, '--synthetic'])
-    cfg_path = tmp_path / 'tiny_train.yml'
-    cfg_path.write_text(TINY_TRAIN_YML)
+    cfg_path = tmp_path / 'tiny_coco.yml'
+    cfg_path.write_text(TINY_TRAIN_YML + "DATASET_NAME: 'coco'\n")
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match='IS score.*M11'):
+    with pytest.raises(NotImplementedError, match='COCO.*M12'):
         main_torch.main(['--cfg', str(cfg_path), '--device', 'cpu',
                          '--synthetic'])
     cfg = _tiny_cfg(tmp_path)
@@ -227,8 +246,11 @@ def test_cli_trains_a_bounded_run(tmp_path, monkeypatch, capsys):
 
 def test_train_moves_the_networks_and_refuses_unbounded_runs(tmp_path):
     """Bounded and unbounded runs train, write the snapshots of their
-    snapshot epochs and auto-resume from the newest; runs that would score
-    IS or run BIG_EVAL still raise (ROADMAP M11)."""
+    snapshot epochs and auto-resume from the newest; a run that pools
+    3,000 fakes for the IS stream and one with BIG_EVAL, which the trainer
+    refused before the Inception tower was ported, run. The one run still
+    refused is one whose loader yields no batch: without max_steps it
+    would go through its epochs taking no step."""
     from text2img_ekl_tpu_torch.train.state import create_train_state
     from text2img_ekl_tpu_torch.train.trainer import CondGANTrainer
     cfg = cfg_from_file(TRAIN_CFG)
@@ -269,14 +291,19 @@ def test_train_moves_the_networks_and_refuses_unbounded_runs(tmp_path):
     assert state.step == 12
     assert sorted(os.listdir(trainer.model_dir)) == ['state_epoch11',
                                                      'state_epoch9']
-    # 3000 fakes pooled (batch 4, every 2nd step) by epoch 14
-    cfg.TRAIN.MAX_EPOCH = 300
-    trainer.num_batches = 100
-    with pytest.raises(NotImplementedError, match='IS score'):
-        trainer.train(max_steps=1500)
-    cfg.TRAIN.BIG_EVAL = True
-    with pytest.raises(NotImplementedError, match='M11'):
-        trainer.train(max_steps=1)
+    # a fresh run whose loader claims 1,500 batches an epoch pools 3,000
+    # fakes (batch 4, every 2nd step) in its epoch by the count that used
+    # to refuse it; it trains (one batch), and so does BIG_EVAL
+    cfg.TRAIN.MAX_EPOCH = 1
+    for name in ('stream', 'big_eval'):
+        cfg.TRAIN.BIG_EVAL = name == 'big_eval'
+        trainer = CondGANTrainer(cfg, str(tmp_path / name), data_loader=one,
+                                 device='cpu')
+        trainer.num_batches = 1500
+        assert trainer.train().step == 1
+    trainer.num_batches = 0
+    with pytest.raises(ValueError, match='yields no batch'):
+        trainer.train(max_steps=None)
 
 
 def test_cli_trains_to_max_epoch_without_max_steps(tmp_path, monkeypatch,

@@ -160,7 +160,7 @@ class Config:
     TPU_SYNTHETIC_DATA: bool = False
     # The native C++ JPEG decoder: the port decodes with PIL (M9).
     TPU_NATIVE_DECODE: bool = True
-    # Steps between in-training IS prediction batches (M11).
+    # Steps between in-training IS prediction batches: used (0 disables).
     TPU_IS_EVERY: int = 2
     # Generator EMA decay (0 disables, the reference's default): used.
     TPU_EMA_DECAY: float = 0.0
@@ -170,7 +170,8 @@ class Config:
     TPU_PROFILE: bool = False
     # Checkpoint retention (M10).
     TPU_KEEP_CHECKPOINTS: int = 0
-    # Direct on-device IS/FID scoring in evaluate (M11).
+    # Direct on-device IS/FID scoring in evaluate, FID against the
+    # mu/sigma .npz named here: used.
     TPU_EVAL_DIRECT: bool = False
     TPU_EVAL_FID_STATS: str = ''
 

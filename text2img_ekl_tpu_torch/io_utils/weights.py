@@ -198,3 +198,121 @@ def load_pth_generator(path: str) -> Dict[str, torch.Tensor]:
             'text2img_ekl_tpu.io_utils.torch_export.save_torch_generator, or '
             'see ROADMAP.md (orbax NET_G load).' % path)
     return _read_state_dict(path)
+
+
+# ---------------------------------------------------------------------------
+# InceptionV3 (models/inception_v3.py): the JAX package's flax tree
+# ('params' / 'batch_stats', HWIO kernels, [in, out] dense) <-> the port's
+# state_dict. Module names are shared; each ConvBN's flax 'Conv_0' and
+# 'BatchNorm_0' are the port's 'conv' and 'bn'.
+
+_INCEPTION_BN = {'scale': ('params', 'weight'), 'bias': ('params', 'bias'),
+                 'mean': ('batch_stats', 'running_mean'),
+                 'var': ('batch_stats', 'running_var')}
+
+
+def _inception_port_key(mods: Tuple[str, ...], leaf: str) -> str:
+    if mods[0] == 'logits':
+        return 'logits.%s' % {'kernel': 'weight', 'bias': 'bias'}[leaf]
+    *scope, layer = mods
+    if layer.startswith('Conv') and leaf == 'kernel':
+        return '%s.conv.weight' % '.'.join(scope)
+    if layer.startswith('BatchNorm'):
+        return '%s.bn.%s' % ('.'.join(scope), _INCEPTION_BN[leaf][1])
+    raise KeyError('no mapping for %s/%s' % ('/'.join(mods), leaf))
+
+
+def inception_flax_path(key: str) -> Tuple[str, ...]:
+    """The port's state_dict key -> the JAX tower's flax path
+    (collection, modules..., leaf)."""
+    *scope, layer, leaf = key.split('.')
+    if not scope and layer == 'logits':
+        return ('params', 'logits',
+                {'weight': 'kernel', 'bias': 'bias'}[leaf])
+    if layer == 'conv':
+        return ('params', *scope, 'Conv_0', 'kernel')
+    if layer == 'bn':
+        flax_leaf = {v[1]: k for k, v in _INCEPTION_BN.items()}[leaf]
+        return (_INCEPTION_BN[flax_leaf][0], *scope, 'BatchNorm_0',
+                flax_leaf)
+    raise KeyError('no mapping for %s' % key)
+
+
+def _inception_keys(num_classes: int, flavor: str) -> Dict[str, tuple]:
+    """The port tower's state_dict keys and shapes, in definition order
+    (built on the meta device: nothing is allocated)."""
+    from ..models.inception_v3 import make_inception
+    with torch.device('meta'):
+        model = make_inception(num_classes, flavor)
+    return {k: tuple(v.shape) for k, v in model.state_dict().items()}
+
+
+def inception_from_flax(variables: Mapping[str, Any],
+                        flavor: str = 'slim') -> Dict[str, torch.Tensor]:
+    """The JAX InceptionV3's variables (nested dicts of numpy arrays, e.g.
+    after ``jax.device_get``, or a converter's output in that layout) ->
+    the port tower's float32 state_dict. Raises KeyError where the keys
+    are not exactly those of ``make_inception(n, flavor)``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(variables):
+        key = _inception_port_key(path[1:-1], path[-1])
+        if key in sd:
+            raise ValueError('duplicate key %s from %s' % (key, path))
+        sd[key] = _port_value(path[-1], value)
+    want = _inception_keys(int(sd['logits.weight'].shape[0]), flavor)
+    missing, extra = set(want) - set(sd), set(sd) - set(want)
+    if missing or extra:
+        raise KeyError('not a %r tower: missing %s, unexpected %s'
+                       % (flavor, sorted(missing)[:10], sorted(extra)[:10]))
+    for k, shape in want.items():
+        if tuple(sd[k].shape) != shape:
+            raise ValueError('%s: shape %s, want %s'
+                             % (k, tuple(sd[k].shape), shape))
+    return {k: sd[k] for k in want}
+
+
+def inception_to_flax(state_dict: Mapping[str, torch.Tensor]
+                      ) -> Dict[str, Any]:
+    """The port tower's state_dict -> the JAX layout (numpy float32),
+    the inverse of ``inception_from_flax``."""
+    tree: Dict[str, Any] = {}
+    for key, t in state_dict.items():
+        path = inception_flax_path(key)
+        a = t.detach().float().cpu().numpy()
+        if path[-1] == 'kernel':
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(a)
+    return tree
+
+
+#: the seed of the random towers that stand in where no weight file is
+#: given: one tower for the trainer and the scoring CLIs, so that a direct
+#: score and a CLI's score of the same images agree
+RANDOM_INCEPTION_SEED = 7
+
+
+def random_inception(seed: int, num_classes: int = 1000,
+                     flavor: str = 'slim', device='cpu'
+                     ) -> Dict[str, torch.Tensor]:
+    """Seeded random tower weights for smoke runs and the fallbacks of
+    the scorers (their scores are relative only): convs He-normal, the
+    classifier N(0, 1/2048), BatchNorm at its identity (gamma 1, beta 0,
+    mean 0, variance 1). Draws follow definition order with the
+    classifier last, so every flavor and class count shares its convs."""
+    gen = torch.Generator().manual_seed(int(seed))
+    sd: Dict[str, torch.Tensor] = {}
+    for key, shape in _inception_keys(num_classes, flavor).items():
+        if key.endswith('conv.weight'):
+            fan_in = shape[1] * shape[2] * shape[3]
+            t = torch.randn(shape, generator=gen) * (2.0 / fan_in) ** 0.5
+        elif key == 'logits.weight':
+            t = torch.randn(shape, generator=gen) * shape[1] ** -0.5
+        elif key.endswith(('bn.weight', 'running_var')):
+            t = torch.ones(shape)
+        else:
+            t = torch.zeros(shape)
+        sd[key] = t.to(device)
+    return sd

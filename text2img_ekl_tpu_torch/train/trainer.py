@@ -13,9 +13,15 @@ strategy:
   ``TRAIN.NET_G`` (a reference netG ``.pth``, or a checkpoint directory of
   this package), loads ``TRAIN.NET_D``, or else resumes from the newest
   snapshot under ``output_dir``; SIGTERM and SIGINT save a snapshot at the
-  next step boundary and return. The in-training IS stream and
-  ``BIG_EVAL`` wait for ROADMAP.md M11: ``train`` raises at start where
-  the run would score IS. Single process only (M13).
+  next step boundary and return. Every ``TPU_IS_EVERY`` steps the step's
+  own fakes go through the Inception tower on the device (a bf16 tower;
+  ``eval/inception_score.py``); at the end of an epoch with 3,000 or more
+  pooled the IS is printed and logged as ``inception_score``, and a score
+  above the reference's threshold (3.4 fine-tuned, 5.5 general, 6.0 COCO)
+  writes a protected snapshot, with real Inception weights
+  (``T2I_INCEPTION_CKPT``) only. ``TRAIN.BIG_EVAL`` scores 1,000 fresh
+  samples an epoch instead, with its save gate at 5.4. Single process only
+  (M13).
 - ``evaluate`` samples the test split to PNGs for the 'cls' and
   'cls_share' patterns with the generator of ``TRAIN.NET_G`` (a ``.pth`` or
   a checkpoint directory, whose EMA it samples with ``TPU_EMA_EVAL``):
@@ -23,14 +29,18 @@ strategy:
   device, and writes one PNG per image under the reference's directory and
   file names. Host noise comes from ``np.random.default_rng(100)`` exactly
   as in the JAX package; device draws (CA eps, class priors) come from a
-  ``torch.Generator`` seeded per sampler call. Super-grid sampling
-  (``TEST.B_EXAMPLE``), direct on-device scoring (``TPU_EVAL_DIRECT``),
-  two-path eval and multi-host eval are not ported yet (ROADMAP.md).
+  ``torch.Generator`` seeded per sampler call. With ``TPU_EVAL_DIRECT``
+  the sampler's uint8 stacks go straight from the device into the IS
+  tower (and the FID tower, against ``TPU_EVAL_FID_STATS``): no PNG is
+  written, and ``direct_scores.json`` holds the scores. Super-grid
+  sampling (``TEST.B_EXAMPLE``), two-path eval and multi-host eval are not
+  ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import itertools
+import json
 import os
 import re
 import signal
@@ -48,7 +58,9 @@ from ..io_utils.checkpoint import (CheckpointManager, parse_epoch_from_path,
                                    restore_train_state)
 from ..io_utils.images import save_image_grid, save_single_images
 from ..io_utils.logging import MetricsLogger
-from ..io_utils.weights import load_pth_discriminator, load_pth_generator
+from ..io_utils.weights import (RANDOM_INCEPTION_SEED,
+                                load_pth_discriminator, load_pth_generator,
+                                random_inception)
 from ..models.generator import build_generator
 from ..nn.blocks import frozen_running_stats
 from .sample import caption_sample
@@ -59,13 +71,23 @@ from .step import check_step_config, make_train_step
 # captions sampled per test image (cub_trainer_splitz_cap_ca.py:826)
 CAPTIONS_PER_IMAGE = 10
 # seed streams of the device generators (the JAX package's host key
-# streams: 1 the train step, 2 the epoch grids, 100 the sampler)
+# streams: 1 the train step, 2 the epoch grids, 4 BIG_EVAL's batches, 100
+# the sampler)
 STEP_SEED_STREAM = 1
 GRID_SEED_STREAM = 2
+BIG_EVAL_SEED_STREAM = 4
 SAMPLER_SEED_STREAM = 100
-# the JAX trainer scores IS once this many fakes are pooled
-# (text2img_ekl_tpu/train/trainer.py:404)
+# IS is scored once this many fakes are pooled
+# (cub_trainer_splitz_cap_ca.py:658)
 IS_MIN_IMAGES = 3000
+# BIG_EVAL scores once more than this many fresh samples are pooled, and
+# saves above BIG_EVAL_THRESHOLD (cub_trainer_splitz_cap_ca.py:698-730)
+BIG_EVAL_IMAGES = 1000
+BIG_EVAL_THRESHOLD = 5.4
+# IS save gates (cub_trainer_splitz_cap_ca.py:670-674)
+IS_THRESHOLD_COCO = 6.0
+IS_THRESHOLD_CUB_GENERAL = 5.5
+IS_THRESHOLD_CUB_FINETUNED = 3.4
 # steps between two records of the scalars (cub_trainer_splitz_cap_ca.py:
 # 458-460)
 LOG_EVERY = 100
@@ -166,36 +188,6 @@ class CondGANTrainer:
                                   dtype=np.float32)[labels]),
         }
 
-    def _check_bounded_run(self, max_steps: Optional[int],
-                           start_epoch: int) -> None:
-        """Raise, before any step, where the JAX trainer would score IS in
-        this run from ``start_epoch``
-        (text2img_ekl_tpu/train/trainer.py:334-339, 404-419): the
-        Inception tower waits for ROADMAP.md M11."""
-        cfg = self.cfg
-        if self.num_batches < 1:
-            raise ValueError('the train loader yields no batch of %d'
-                             % self.batch_size)
-        every = int(cfg.TPU_IS_EVERY)
-        if every <= 0:
-            return
-        pooled, taken = 0, 0
-        for epoch in range(start_epoch, cfg.TRAIN.MAX_EPOCH):
-            steps = self.num_batches
-            # the loop takes a step before it tests its bound
-            if max_steps is not None:
-                steps = max(1, min(steps, max_steps - taken))
-            pooled += (steps // every) * self.batch_size
-            if pooled >= IS_MIN_IMAGES:
-                raise NotImplementedError(
-                    'this run reaches the in-training IS score (%d fakes '
-                    'pooled by epoch %d, TPU_IS_EVERY %d): ROADMAP.md M11; '
-                    'set TPU_IS_EVERY 0 or bound the run'
-                    % (pooled, epoch, every))
-            taken += steps
-            if max_steps is not None and taken >= max_steps:
-                break
-
     def _load_pth_generator(self, path: str, state: TrainState) -> None:
         """A reference netG .pth into G (the Ds and the Adams keep their
         fresh init: all that a reference snapshot carries); a live EMA slot
@@ -220,9 +212,6 @@ class CondGANTrainer:
         cfg = self.cfg
         if not cfg.TRAIN.FLAG:
             raise ValueError('train() needs TRAIN.FLAG True')
-        if cfg.TRAIN.BIG_EVAL:
-            raise NotImplementedError('TRAIN.BIG_EVAL needs the Inception '
-                                      'tower: ROADMAP.md M11')
         state = self.state = create_train_state(cfg, self.device, seed=0)
         start_epoch = 0
         if cfg.TRAIN.NET_G:
@@ -245,8 +234,15 @@ class CondGANTrainer:
         if cfg.TRAIN.NET_D:
             self._load_pth_discriminators(cfg.TRAIN.NET_D, state)
         resolve_restored_ema(state, cfg.TPU_EMA_DECAY)
-        self._check_bounded_run(max_steps, start_epoch)
+        if self.num_batches < 1:
+            raise ValueError('the train loader yields no batch of %d'
+                             % self.batch_size)
         step_fn = make_train_step(cfg)
+        # no tower where the stream is off (TPU_IS_EVERY <= 0): building it
+        # costs start-up time, and its random-weights warning would mislead
+        scorer = (self._make_is_scorer()
+                  if not cfg.TRAIN.BIG_EVAL and cfg.TPU_IS_EVERY > 0
+                  else None)
 
         # a SIGTERM / SIGINT asks for a snapshot at the next step boundary
         # and a clean return (the reference loses everything since its last
@@ -264,31 +260,42 @@ class CondGANTrainer:
             except (ValueError, OSError):
                 pass  # not the main thread
         try:
-            self._train_epochs(state, step_fn, start_epoch, stop, max_steps)
+            self._train_epochs(state, step_fn, scorer, start_epoch, stop,
+                               max_steps)
         finally:
             for sig, h in old_handlers.items():
                 signal.signal(sig, h)
             self.logger.close()
         return state
 
-    def _train_epochs(self, state: TrainState, step_fn, start_epoch: int,
-                      stop: Dict[str, bool],
+    def _train_epochs(self, state: TrainState, step_fn, scorer,
+                      start_epoch: int, stop: Dict[str, bool],
                       max_steps: Optional[int]) -> None:
         cfg = self.cfg
         count = state.step
         taken = 0
+        every = int(cfg.TPU_IS_EVERY)
+        threshold = (IS_THRESHOLD_COCO if cfg.DATASET_NAME == 'coco' else
+                     IS_THRESHOLD_CUB_GENERAL if cfg.TRAIN.GENERAL_IS
+                     else IS_THRESHOLD_CUB_FINETUNED)
         for epoch in range(start_epoch, cfg.TRAIN.MAX_EPOCH):
             start_t = time.time()
             metrics: Dict[str, torch.Tensor] = {}
             last_batch = None
-            for host_batch in self.data_loader:
+            for step_i, host_batch in enumerate(self.data_loader):
                 last_batch = self._device_batch(host_batch)
                 # the draws are keyed on the step count, so a resumed run
                 # draws what the uninterrupted run draws
-                metrics, _ = step_fn(state, last_batch,
-                                     _seed(STEP_SEED_STREAM, count))
+                metrics, fakes = step_fn(state, last_batch,
+                                         _seed(STEP_SEED_STREAM, count))
                 count += 1
                 taken += 1
+                # after every N steps of an epoch (N = 2: steps 1, 3, 5..,
+                # the reference's every other step, cub_trainer:613), the
+                # step's own fakes, on the device: one tower forward is the
+                # stream's whole cost
+                if scorer is not None and (step_i + 1) % every == 0:
+                    scorer.add(fakes)
                 if count % LOG_EVERY == 0:
                     self.logger.log_scalars(
                         count, {k: float(v) for k, v in metrics.items()})
@@ -323,8 +330,87 @@ class CondGANTrainer:
             if epoch % interval == interval - 1 or epoch > 199:
                 self.ckpt.save(state, epoch)
                 print('Snapshot: save model ok')
+            if scorer is not None and scorer.count >= IS_MIN_IMAGES:
+                mean, std = scorer.score(num_splits=1)
+                print('Epoch%d IS: %.3f +- %.3f' % (epoch, mean, std))
+                self.logger.log_scalars(count, {'inception_score': mean})
+                self._is_gated_save(state, epoch, mean, threshold, scorer)
+            elif cfg.TRAIN.BIG_EVAL:
+                mean = self._big_eval(state, epoch)
+                print('Epoch%d IS: %.3f' % (epoch, mean))
+                self._is_gated_save(state, epoch, mean, BIG_EVAL_THRESHOLD,
+                                    self._big_scorer)
             if max_steps is not None and taken >= max_steps:
                 break
+
+    def _is_gated_save(self, state: TrainState, epoch: int, mean: float,
+                       threshold: float, scorer) -> None:
+        """The reference's threshold-gated "good model" save
+        (cub_trainer_splitz_cap_ca.py:670-696), as a protected snapshot,
+        refused on random Inception weights: an IS above 3.4 from a tower
+        that was never trained is noise."""
+        if mean <= threshold:
+            return
+        if getattr(scorer, 'real_weights', False):
+            self.ckpt.save(state, epoch, protect=True)
+            print('Saved good model')
+        else:
+            print('IS %.3f above threshold but inception weights are '
+                  'random - skipping good-model save '
+                  '(set T2I_INCEPTION_CKPT)' % mean)
+
+    def _make_is_scorer(self, dtype: Optional[torch.dtype] = torch.bfloat16):
+        """The IS tower on the trainer's device: the converted TF-slim
+        checkpoint of ``T2I_INCEPTION_CKPT``, or seeded random weights
+        (scores then are relative only; ``real_weights`` says which). The
+        default bf16 tower serves the in-training relative gate; ``dtype``
+        None builds the float32 one of offline scoring. ``GENERAL_IS``
+        takes the torchvision flavor with 1,000 classes (reference
+        model.py:18-47)."""
+        from ..eval.inception_score import InceptionScorer
+        general = self.cfg.TRAIN.GENERAL_IS
+        num_classes = 1000 if general else 51
+        flavor = 'torch' if general else 'slim'
+        ckpt = os.environ.get('T2I_INCEPTION_CKPT', '')
+        real_weights = bool(ckpt and (os.path.exists(ckpt) or
+                                      os.path.exists(ckpt + '.index')))
+        if real_weights:
+            from ..eval.convert_tf import (flax_template,
+                                           load_slim_checkpoint,
+                                           slim_vars_to_flax)
+            from ..io_utils.weights import inception_from_flax
+            variables = inception_from_flax(slim_vars_to_flax(
+                load_slim_checkpoint(ckpt, num_classes),
+                flax_template(num_classes, flavor)), flavor)
+        else:
+            variables = random_inception(RANDOM_INCEPTION_SEED, num_classes,
+                                         flavor)
+            print('!! Inception weights are random (no checkpoint found): '
+                  'in-training IS is a relative signal only')
+        scorer = InceptionScorer(variables, num_classes,
+                                 finetuned=not general, flavor=flavor,
+                                 dtype=dtype, device=self.device)
+        # the absolute save thresholds mean something only with the
+        # reference's trained weights: the protected save checks this
+        scorer.real_weights = real_weights
+        return scorer
+
+    def _big_eval(self, state: TrainState, epoch: int) -> float:
+        """Sample more than BIG_EVAL_IMAGES fresh fakes over loader batches
+        with the current G and score IS (the reference's per-epoch eval,
+        cub_trainer_splitz_cap_ca.py:698-730)."""
+        if not hasattr(self, '_big_scorer'):
+            self._big_scorer = self._make_is_scorer()
+        scorer = self._big_scorer
+        for bi, host_batch in enumerate(self.data_loader):
+            if scorer.count > BIG_EVAL_IMAGES:
+                break
+            batch = self._device_batch(host_batch)
+            fakes = self._sample_like(
+                state, batch, _seed(BIG_EVAL_SEED_STREAM, epoch * 4096 + bi))
+            scorer.add(fakes[-1])
+        mean, _ = scorer.score(num_splits=1)
+        return mean
 
     def _sample_like(self, state: TrainState, batch: Dict[str, Any],
                      seed: int):
@@ -359,19 +445,23 @@ class CondGANTrainer:
 
     # ------------------------------------------------------------------
     def evaluate(self, max_batches: Optional[int] = None) -> Optional[str]:
-        """Sample the test split to PNGs; returns the eval directory."""
+        """Sample the test split to PNGs, or score it on the device with
+        ``TPU_EVAL_DIRECT``; returns the eval directory."""
         cfg = self.cfg
         for flag, what in ((cfg.TRAIN.ENTITY_NET_G, 'two-path eval '
                             '(TRAIN.ENTITY_NET_G)'),
                            (cfg.TEST.B_EXAMPLE, 'super-grid sampling '
                             '(TEST.B_EXAMPLE)'),
-                           (cfg.TPU_EVAL_DIRECT, 'direct on-device scoring '
-                            '(TPU_EVAL_DIRECT)'),
                            (not cfg.TEST.EVAL_MODE, 'train-mode sampling '
                             '(TEST.EVAL_MODE False)')):
             if flag:
                 raise NotImplementedError('%s is not ported yet: see '
                                           'ROADMAP.md' % what)
+        direct = bool(cfg.TPU_EVAL_DIRECT)
+        if direct and cfg.TPU_EVAL_FID_STATS:
+            # before any sampling: a bad file must not cost a sampling run
+            from ..eval.fid import load_statistics
+            load_statistics(cfg.TPU_EVAL_FID_STATS)
         if cfg.TRAIN.FLAG:
             raise ValueError('evaluate() needs TRAIN.FLAG False')
         if not cfg.TRAIN.NET_G:
@@ -404,18 +494,33 @@ class CondGANTrainer:
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+        is_scorer = fid_scorer = None
+        if direct:
+            is_scorer = self._make_is_scorer(dtype=None)  # float32 offline
+            if cfg.TPU_EVAL_FID_STATS:
+                fid_scorer = self._make_fid_scorer()
+
         count = 0
         # One batch in flight: batch b samples on the device while batch
-        # b-1's pixels are written. (host tensor, event, names, cls,
-        # noise id, captions to keep)
+        # b-1's pixels are written or scored. (pixels: a host copy, or the
+        # device stack when scoring directly; event, names, cls, noise id,
+        # captions to keep)
         pending = []
 
         def drain(limit):
             while len(pending) > limit:
-                host, event, names, pcls, nid, keep = pending.pop(0)
+                pixels, event, names, pcls, nid, keep = pending.pop(0)
+                if direct:
+                    # the towers take the device stack; nothing reaches
+                    # the host until the scores
+                    for si in range(keep):
+                        is_scorer.add_uint8_row(pixels, si)
+                        if fid_scorer is not None:
+                            fid_scorer.add_uint8_row(pixels, si)
+                    continue
                 if event is not None:
                     event.synchronize()
-                arr = host.numpy()
+                arr = pixels.numpy()
                 for si in range(keep):
                     save_single_images(arr[si], names, save_dir, si, pcls,
                                        cfg.imsize, nid)
@@ -449,14 +554,12 @@ class CondGANTrainer:
                 keep = n_cap if target is None else min(
                     n_cap, max(0, -(-(target - count) // bsz)))
                 if keep:
-                    event = None
-                    if dev.type == 'cuda':
-                        host = out.to('cpu', non_blocking=True)
+                    pixels, event = out, None
+                    if dev.type == 'cuda' and not direct:
+                        pixels = out.to('cpu', non_blocking=True)
                         event = torch.cuda.Event()
                         event.record()
-                    else:
-                        host = out
-                    pending.append((host, event, data['key'], cls0, nid,
+                    pending.append((pixels, event, data['key'], cls0, nid,
                                     keep))
                     count += bsz * keep
                 drain(1)
@@ -470,7 +573,50 @@ class CondGANTrainer:
                       'images (target %d)' % (count, target))
                 break
         drain(0)
+        if direct:
+            return self._write_direct_scores(save_dir, count, is_scorer,
+                                             fid_scorer)
         print('Save images ok; Number of images: %d' % count)
+        return save_dir
+
+    def _make_fid_scorer(self):
+        """The FID tower on the trainer's device: the frozen 2015 graph of
+        ``T2I_FID_PB``, or seeded random weights in its flavor (1,008
+        classes; FID is then relative only)."""
+        from ..eval.fid import FIDScorer
+        pb = os.environ.get('T2I_FID_PB', '')
+        if pb and os.path.exists(pb):
+            return FIDScorer.from_frozen_pb(pb, device=self.device)
+        print('!! random FID tower (no $T2I_FID_PB): FID is relative-only')
+        return FIDScorer(random_inception(RANDOM_INCEPTION_SEED, 1008, 'fid'),
+                         1008, flavor='fid', device=self.device)
+
+    def _write_direct_scores(self, save_dir: str, count: int, is_scorer,
+                             fid_scorer) -> str:
+        """<save_dir>/direct_scores.json: images, IS (10 splits from 100
+        images on, as is_of_dir scores a directory), whether the IS tower
+        has real weights, and FID where TPU_EVAL_FID_STATS is set."""
+        os.makedirs(save_dir, exist_ok=True)
+        path = os.path.join(save_dir, 'direct_scores.json')
+        if count == 0:
+            with open(path, 'w') as f:
+                json.dump({'images': 0}, f, indent=1)
+            print('Direct eval: 0 images sampled - no scores')
+            return save_dir
+        splits = 10 if count >= 100 else 1
+        mean, std = is_scorer.score(num_splits=splits)
+        result = {'images': count, 'is_mean': mean, 'is_std': std,
+                  'is_splits': splits,
+                  'real_is_weights': bool(is_scorer.real_weights)}
+        if fid_scorer is not None:
+            result['fid'] = fid_scorer.accumulated_fid_against_stats(
+                self.cfg.TPU_EVAL_FID_STATS)
+        with open(path, 'w') as f:
+            json.dump(result, f, indent=1)
+        print('Direct eval (no PNG round trip): IS %.4f +- %.4f over %d '
+              'images%s' % (mean, std, count,
+                            (' FID %.4f' % result['fid'])
+                            if 'fid' in result else ''))
         return save_dir
 
     def _eval_save_dir(self, mode: str) -> str:
