@@ -99,7 +99,21 @@ found; any failure raises and exits non-zero:
      TPU_EVAL_DIRECT on phase 3's config and weights (640 images, no PNG):
      its one-split IS against is_of_dir_torch.py on phase 3's PNGs, its FID
      against fid_torch.py --save_stats of that directory; (d) the tower's
-     images/s, float32 at batch 64 and bf16 at batch 32.
+     images/s, float32 at batch 64 and bf16 at batch 32;
+ 17. the native host paths (csrc/*.cpp, built with g++ into build/): (a)
+     build the JPEG decoder and the PNG writer and print what the host
+     offers (g++'s version, jpeglib.h, png.h, libjpeg, libpng); a half
+     whose header or library is missing prints "phase 17 <half> SKIPPED"
+     and its checks run on the PIL fallback instead; (b) phase 3's
+     evaluate gave the native writer a batch per caption row and flushed
+     with no error; evaluate with T2I_NATIVE_WRITE 1 and 0 in turns (1, 0,
+     0, 1), images/s each, the sampler's uint8 stacks the same in every
+     turn, one batch's PNGs equal to its stack, and the two directories
+     the same names and pixels; (c) train(max_steps=3) at full width on 96
+     fabricated 500x375 CUB JPEGs with TPU_NATIVE_DECODE: every batch from
+     the native decoder, finite losses, phase 8's launches per step; the
+     epoch's time against synthetic data; tools/bench_loader_torch.py
+     --n 256 --bs 32.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, where
@@ -275,32 +289,6 @@ def _errors(out, ref, rtol, atol):
         else 0.0
     ok = bool((diff <= rtol * ref.abs() + atol * scale).all())
     return float(diff.max()), rel, scale, ok
-
-
-def _seeded_generator(cfg, build_generator, dev):
-    """A random generator whose every layer carries signal: a fresh init
-    routes to outputs near 1e-7, which BatchNorm's fresh 0/1 statistics
-    pass on as near-zeros, so the images would hardly depend on the
-    capsule stage. Capsule weights are drawn unit-variance and every
-    BatchNorm's running statistics are set from one random batch."""
-    import torch
-    from text2img_ekl_tpu_torch.nn import blocks
-    torch.manual_seed(0)
-    G = build_generator(cfg, train_flag=False).to(dev)
-    momentum = blocks.BN_MOMENTUM
-    with torch.no_grad():
-        cap = G.h_net1.fc_cap[1].weight
-        cap.copy_(torch.randn(cap.shape, device=dev))
-        blocks.BN_MOMENTUM = 0.0  # running statistics := this batch's
-        try:
-            b = 64
-            G.train()(torch.randn((b, cfg.GAN.Z_DIM), device=dev),
-                      torch.randn((b, cfg.TEXT.DIMENSION), device=dev) * 0.03,
-                      torch.eye(cfg.GAN.ENTITY_DIM, device=dev)[
-                          torch.randint(0, cfg.GAN.ENTITY_DIM, (b,))])
-        finally:
-            blocks.BN_MOMENTUM = momentum
-    return {k: v.cpu() for k, v in G.state_dict().items()}
 
 
 def _time_ms(fn, iters):
@@ -1020,6 +1008,229 @@ def _direct_eval_phase(ecfg, png_dir, reset_launches, launches, card):
             'fid': scores['fid']}
 
 
+# phase 17: the native host paths. A half is skipped only where the probe
+# finds no g++, or no header or library that its source needs; a source
+# that does not build or load where they exist fails the phase. The
+# writer's PNGs must hold the sampler's uint8 pixels exactly, and the two
+# routes' directories the same names and pixels.
+NATIVE_HALVES = (('decoder', 'dataloader'), ('writer', 'imagewriter'))
+CAPTIONS = 10
+DECODER_JPEGS = 96   # three batches of 32: one epoch of train(max_steps=3)
+LOADER_BENCH = ['--n', '256', '--bs', '32']
+
+
+def _native_build_phase():
+    """17a. Build both host libraries; print what the probe found."""
+    from text2img_ekl_tpu_torch.ops import _build
+    probe = _build.host_probe()
+    print('phase 17a host probe: g++ %s; headers %s; libraries %s'
+          % (probe['g++'] or 'not found', probe['headers'],
+             probe['libraries']))
+    available = {}
+    for half, stem in NATIVE_HALVES:
+        header, lib = _build.HOST_DEPS[stem]
+        missing = ([] if probe['g++'] else ['g++']) + [
+            what for what, ok in (
+                (header, probe['headers'].get(header)),
+                ('lib' + lib, probe['libraries'].get('lib' + lib)))
+            if not ok]
+        available[half] = not missing
+        if missing:
+            print('phase 17 %s SKIPPED: %s missing' % (half,
+                                                        ', '.join(missing)))
+            continue
+        t0 = time.perf_counter()
+        built = _build.host_library(stem)
+        print('phase 17a %s: csrc/%s.cpp built and loaded in %.2f s -> %s'
+              % (half, stem, time.perf_counter() - t0,
+                 os.path.relpath(built._name, ROOT)))
+    return available
+
+
+def _writer_phase(ecfg, phase3, native_ok, card):
+    """17b. The PNG writer: its batches in phase 3's evaluate; then evaluate
+    with T2I_NATIVE_WRITE 1 and 0 in turns (1, 0, 0, 1) on phase 3's
+    weights and draws: the sampler's uint8 stacks recorded, one batch's
+    files held to its stack, the two routes' directories to each other."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    import text2img_ekl_tpu_torch.train.trainer as trainer_mod
+    from text2img_ekl_tpu_torch.io_utils import native_writer
+    from text2img_ekl_tpu_torch.io_utils.images import flush_writes
+    images = phase3['images']
+    ok_line = 'Save images ok; Number of images: %d' % images
+    fallback = 'native PNG writer unavailable'
+    want_batches = BATCHES * CAPTIONS if native_ok else 0
+    print('phase 17b phase 3\'s evaluate: %d batches to the native writer '
+          '(want %d), "%s" printed %s, PIL fallback printed %s'
+          % (phase3['writer_batches'], want_batches, ok_line,
+             ok_line in phase3['printed'], fallback in phase3['printed']))
+    if phase3['writer_batches'] != want_batches or \
+            ok_line not in phase3['printed'] or \
+            (fallback in phase3['printed']) == native_ok:
+        raise AssertionError('phase 3\'s evaluate did not write as expected')
+    if flush_writes() != 0 or not all(os.path.exists(p)
+                                      for p in phase3['pngs']):
+        raise AssertionError('the writer lost a file of phase 3')
+
+    stacks, calls = [], []
+    real_sample = trainer_mod.caption_sample
+    real_save = trainer_mod.save_single_images
+
+    def sample(*a, **kw):
+        out = real_sample(*a, **kw)
+        stacks[-1].append(out.cpu())
+        return out
+
+    def save(images_, names, save_dir, si, classes, imsize, nid):
+        calls[-1].append((save_dir, list(names), si,
+                          [int(c) for c in classes], imsize, nid))
+        return real_save(images_, names, save_dir, si, classes, imsize, nid)
+
+    trainers = {route: trainer_mod.CondGANTrainer(
+        ecfg, os.path.join(WORK, 'writer_' + route), device='cuda')
+        for route in ('1', '0')}
+    seconds = {'1': [], '0': []}
+    dirs = {}
+    env = os.environ.get('T2I_NATIVE_WRITE')
+    trainer_mod.caption_sample = sample
+    trainer_mod.save_single_images = save
+    try:
+        for route in ('1', '0', '0', '1'):
+            os.environ['T2I_NATIVE_WRITE'] = route
+            shutil.rmtree(trainers[route].output_dir, ignore_errors=True)
+            stacks.append([])
+            calls.append([])
+            before = native_writer.batches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dirs[route], out = _captured(trainers[route].evaluate,
+                                         max_batches=BATCHES)
+            seconds[route].append(time.perf_counter() - t0)
+            got = native_writer.batches - before
+            if got != (want_batches if route == '1' else 0) or \
+                    ok_line not in out:
+                raise AssertionError('evaluate with T2I_NATIVE_WRITE=%s: %d '
+                                     'batches to the native writer'
+                                     % (route, got))
+    finally:
+        trainer_mod.caption_sample = real_sample
+        trainer_mod.save_single_images = real_save
+        if env is None:
+            os.environ.pop('T2I_NATIVE_WRITE', None)
+        else:
+            os.environ['T2I_NATIVE_WRITE'] = env
+    same_draws = all(len(t) == BATCHES and all(
+        torch.equal(a, b) for a, b in zip(t, stacks[0])) for t in stacks)
+    # batch 0's files of the native route against the sampler's stack: its
+    # CAPTIONS writes come first
+    mismatched = checked = 0
+    for (save_dir, names, si, classes, imsize, nid) in calls[0][:CAPTIONS]:
+        for i, (name, c) in enumerate(zip(names, classes)):
+            path = '%s/single_samples/%s_%d_class%d_sid%d_nid%d.png' % (
+                save_dir, name, imsize, c, si, nid)
+            checked += 1
+            mismatched += not np.array_equal(np.asarray(Image.open(path)),
+                                             stacks[0][0][si, i].numpy())
+
+    def listing(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, files in os.walk(root) for f in files)
+
+    names = {r: listing(d) for r, d in dirs.items()}
+    differ = sum(not np.array_equal(
+        np.asarray(Image.open(os.path.join(dirs['1'], f))),
+        np.asarray(Image.open(os.path.join(dirs['0'], f))))
+        for f in names['1']) if names['1'] == names['0'] else -1
+    rate = {r: ['%.1f' % (images / t) for t in ts]
+            for r, ts in seconds.items()}
+    print('phase 17b evaluate on %s, %d host cores, %d images a turn, in '
+          'turns (1, 0, 0, 1): T2I_NATIVE_WRITE=1 (%s) %s images/s, '
+          'T2I_NATIVE_WRITE=0 (PIL) %s images/s; seconds %s'
+          % (card, os.cpu_count(), images,
+             'native writer' if native_ok else 'PIL: no native writer here',
+             rate['1'], rate['0'],
+             {r: ['%.3f' % t for t in ts] for r, ts in seconds.items()}))
+    print('phase 17b same sampler stacks in every turn %s; batch 0\'s %d '
+          'PNGs vs the sampler\'s uint8 stack: %d differ; the two routes\' '
+          'directories: %d and %d files, same names %s, %d differ in pixels'
+          % (same_draws, checked, mismatched, len(names['1']),
+             len(names['0']), names['1'] == names['0'], differ))
+    if not same_draws or checked != ecfg.TRAIN.BATCH_SIZE * CAPTIONS or \
+            mismatched or differ != 0 or len(names['1']) != images:
+        raise AssertionError('the writer\'s PNGs disagree')
+
+
+def _decoder_phase(tcfg, native_ok, reset_launches, launches, card):
+    """17c. train(max_steps=3) at full width on fabricated CUB JPEGs with
+    TPU_NATIVE_DECODE, then on synthetic data; the loader's bench."""
+    import re
+    import numpy as np
+    import torch
+    from text2img_ekl_tpu_torch.train.trainer import CondGANTrainer
+    from tools import bench_loader_torch
+    root = os.path.join(WORK, 'data', 'birds')
+    t0 = time.perf_counter()
+    bench_loader_torch.fabricate_cub(root, DECODER_JPEGS)
+    fabricate_s = time.perf_counter() - t0
+    jcfg = copy.deepcopy(tcfg)
+    jcfg.TPU_SYNTHETIC_DATA = False
+    jcfg.DATA_DIR = root
+    jcfg.TPU_NATIVE_DECODE = True
+    want = {k: TRAIN_STEPS * PER_STEP[k] + PER_RUN[k] for k in PER_STEP}
+    fallback = '!! native decode unavailable, using PIL'
+    result = {}
+    for source, c in (('jpeg', jcfg), ('synthetic', tcfg)):
+        trainer = CondGANTrainer(c, os.path.join(WORK, 'decoder_' + source),
+                                 device='cuda')
+        reset_launches()
+        t0 = time.perf_counter()
+        _, out = _captured(trainer.train, max_steps=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = launches()
+        metrics = trainer.last_metrics
+        ds = trainer.data_loader.dataset
+        result[source] = {
+            'wall_s': wall, 'epoch_s': float(re.findall(
+                r'Time: ([0-9.]+)s', out)[-1]),
+            'native_batches': getattr(ds, 'native_batches', None),
+            'batches': len(trainer.data_loader),
+            'fallback_printed': out.count(fallback),
+            'finite': all(np.isfinite(v) for v in metrics.values()),
+            'launches_ok': got == want}
+        del trainer
+    jr = result['jpeg']
+    print('phase 17c train(max_steps=%d) on %d fabricated 500x375 JPEGs '
+          '(CUB layout, bboxes; fabricated in %.2f s) with TPU_NATIVE_DECODE '
+          '%s: %d of %d batches decoded natively, PIL fallback printed %d '
+          'time(s), finite losses %s, launches per step as phase 8 %s'
+          % (TRAIN_STEPS, DECODER_JPEGS, fabricate_s,
+             'on the native decoder' if native_ok else
+             '(no native decoder here: PIL)', jr['native_batches'],
+             jr['batches'], jr['fallback_printed'], jr['finite'],
+             jr['launches_ok']))
+    print('phase 17c on %s, %d host cores: the epoch of %d steps took %.2f s '
+          'on JPEGs (%s) and %.2f s on synthetic data; train() %.2f s and '
+          '%.2f s'
+          % (card, os.cpu_count(), TRAIN_STEPS, jr['epoch_s'],
+             'native' if native_ok else 'PIL', result['synthetic']['epoch_s'],
+             jr['wall_s'], result['synthetic']['wall_s']))
+    want_native = TRAIN_STEPS if native_ok else 0
+    if jr['batches'] != TRAIN_STEPS or jr['native_batches'] != want_native \
+            or jr['fallback_printed'] != (0 if native_ok else 1):
+        raise AssertionError('the JPEG loader did not decode as expected')
+    if not all(r['finite'] and r['launches_ok'] for r in result.values()):
+        raise AssertionError('train() on JPEGs or synthetic data: %s'
+                             % result)
+    print('phase 17c tools/bench_loader_torch.py %s:' % ' '.join(LOADER_BENCH))
+    lines = bench_loader_torch.main(LOADER_BENCH)
+    if any(ln['value'] is None for ln in lines if ln['path'].startswith(
+            'pil') or native_ok):
+        raise AssertionError('the loader bench lacks a path')
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1042,6 +1253,8 @@ def main() -> int:
     from text2img_ekl_tpu_torch.train.trainer import CondGANTrainer
     from text2img_ekl_tpu_torch.ops import capsule_variants as cv
     from tools import bench_capsule_torch as bench
+    from tools.bench_eval_torch import seeded_generator
+    from text2img_ekl_tpu_torch.io_utils import native_writer
 
     card = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -1200,17 +1413,19 @@ def main() -> int:
     assert cfg.GAN.GF_DIM == 64 and cfg.TRAIN.BATCH_SIZE == 32
     net_g = os.path.join(WORK, 'run_seed0', 'Model', 'netG_epoch_0.pth')
     os.makedirs(os.path.dirname(net_g))
-    state = _seeded_generator(cfg, build_generator, dev)
+    state = seeded_generator(cfg, dev)
     torch.save(state, net_g)
     cfg.TRAIN.NET_G = net_g
     trainer = CondGANTrainer(cfg, os.path.join(WORK, 'eval_run'),
                              device='cuda')
+    writer_batches = native_writer.batches
     reset_launches()
     t0 = time.perf_counter()
-    save_dir = trainer.evaluate(max_batches=BATCHES)
+    save_dir, eval_out = _captured(trainer.evaluate, max_batches=BATCHES)
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     eval_launches = launches()
+    writer_batches = native_writer.batches - writer_batches
     pngs = []
     for d, _, files in os.walk(save_dir):
         pngs += [os.path.join(d, f) for f in files if f.endswith('.png')]
@@ -1218,14 +1433,19 @@ def main() -> int:
     from PIL import Image
     shapes = {np.asarray(Image.open(p)).shape for p in pngs}
     print('phase 3 evaluate: launches %s for %d sampler calls, %d PNGs '
-          '(want %d) of shape %s in %.2f s'
-          % (eval_launches, BATCHES, len(pngs), want, sorted(shapes), eval_s))
+          '(want %d) of shape %s in %.2f s (%.1f images/s; %d batches to the '
+          'native writer)'
+          % (eval_launches, BATCHES, len(pngs), want, sorted(shapes), eval_s,
+             want / eval_s, writer_batches))
     if eval_launches != dict(PER_RUN, **{'K1-G': BATCHES}):
         raise AssertionError('K1-G did not run once per sampler call')
     if len(pngs) != want or shapes != {(cfg.imsize, cfg.imsize, 3)}:
         raise AssertionError('evaluate wrote the wrong PNGs')
-    # phase 16 scores these PNGs against direct eval on the same weights
+    # phase 16 scores these PNGs against direct eval on the same weights;
+    # phase 17 checks the writer's part in this run
     png_dir, eval_cfg = save_dir, copy.deepcopy(cfg)
+    phase3 = {'writer_batches': writer_batches, 'printed': eval_out,
+              'pngs': sorted(pngs), 'images': want}
 
     # 4. CUDA generator (K1) against CPU generator (plain), float32; and
     #    the config's compute dtype on the card against the same reference
@@ -1989,6 +2209,13 @@ def main() -> int:
     _is_stream_phase(tcfg, reset_launches, launches, card)
     _direct_eval_phase(eval_cfg, png_dir, reset_launches, launches, card)
     _tower_rate_phase(card)
+
+    # 17. the native host paths: the PNG writer on phase 3's evaluate and
+    #     against PIL; the JPEG decoder under the flagship's train()
+    available = _native_build_phase()
+    _writer_phase(eval_cfg, phase3, available['writer'], card)
+    _decoder_phase(tcfg, available['decoder'], reset_launches, launches,
+                   card)
 
     shutil.rmtree(WORK, ignore_errors=True)
     bad = sorted(m for m in sys.modules

@@ -64,6 +64,7 @@ def test_port_imports_no_jax():
         "for m in mods + ['text2img_ekl_tpu_torch.ops.capsule_variants', "
         "'main_torch', 'chip_smoke', 'tools.profile_torch_sampler', "
         "'tools.bench_capsule_torch', 'tools.bench_conv_dw_torch', "
+        "'tools.bench_loader_torch', 'tools.bench_eval_torch', "
         "'inception_score_torch', 'fid_torch', 'is_of_dir_torch']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if banned(m))\n"
@@ -73,7 +74,10 @@ def test_port_imports_no_jax():
         "'text2img_ekl_tpu_torch.eval.convert_tf', "
         "'text2img_ekl_tpu_torch.eval.tf_files', "
         "'text2img_ekl_tpu_torch.eval.inception_score', "
-        "'text2img_ekl_tpu_torch.eval.fid'}\n"
+        "'text2img_ekl_tpu_torch.eval.fid', "
+        "'text2img_ekl_tpu_torch.ops._build', "
+        "'text2img_ekl_tpu_torch.io_utils.native_writer', "
+        "'text2img_ekl_tpu_torch.data.native_loader'}\n"
         "print(len(mods), need <= set(mods), bad)\n")
     proc = _run(['-c', code])
     assert proc.returncode == 0, proc.stderr

@@ -15,9 +15,11 @@ The port's own copy of ``text2img_ekl_tpu/data/datasets.py``
 Items are numpy NHWC float32 in [-1, 1], or uint8 pixels with
 ``uint8_output`` (quantised by ``io_utils.images.pm1_to_uint8``). A
 ``SyntheticTextDataset`` with the same item contract is a deterministic
-stand-in when no dataset exists on disk. Images decode with PIL; the
-JAX package's native C++ decoder and its LSUN and ImageFolder datasets are
-not ported (ROADMAP.md M9, M12).
+stand-in when no dataset exists on disk. With ``native_decode`` a whole
+batch, real and wrong images, decodes in the native C++ pipeline
+(``TextDataset.batch_items``, ``data/native_loader.py``); otherwise each
+item decodes with PIL. The JAX package's LSUN and ImageFolder datasets are
+not ported (ROADMAP.md M12).
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ class TextDataset:
                  embedding_type: str = 'cnn-rnn', base_size: int = 64,
                  branch_num: int = 2, entity_dim: int = 200,
                  train_pairs: bool = True, transform=None, seed: int = 0,
-                 uint8_output: bool = False):
+                 native_decode: bool = False, uint8_output: bool = False):
         self.data_dir = data_dir
         self.branch_num = branch_num
         self.entity_dim = entity_dim
@@ -61,6 +63,10 @@ class TextDataset:
         # raw uint8 pyramids; the train step normalizes on the device
         # (cfg.TPU_UINT8_INPUT: 4x less host bandwidth and H2D transfer)
         self.uint8_output = uint8_output
+        self.native_decode = native_decode
+        self._native = None  # the NativeDecoder, built on first use
+        # batches that batch_items decoded natively
+        self.native_batches = 0
 
         self.bbox = self._load_bbox() if 'birds' in data_dir else None
         split_dir = os.path.join(data_dir, split)
@@ -123,6 +129,68 @@ class TextDataset:
         img = self.transform(img, rng)
         return T.multiscale_pyramid(img, self.imsize,
                                     as_uint8=self.uint8_output)
+
+    # -- batch-granular native decode -----------------------------------
+    def _native_decoder(self):
+        if self._native is None:
+            from .native_loader import NativeDecoder
+            self._native = NativeDecoder(self.imsize,
+                                         uint8_output=self.uint8_output)
+        return self._native
+
+    def batch_items(self, indices, seed: int = 0) -> Dict[str, Any]:
+        """A whole batch through the native C++ decoder
+        (``csrc/dataloader.cpp``): one ``decode_batch`` call covers every
+        real AND wrong image, the oversize resize, random crop, flip and
+        pyramid running in C++ threads off the Python thread.
+
+        Returns the batch dict the per-item path collates to, equal to the
+        JAX package's ``batch_items`` for the same dataset seed: the wrong
+        indices (one redraw where a draw hits its own index), then the
+        caption indices, come from ``self.rng`` in that order. Raises
+        ``NativeUnavailable`` where the library cannot be built or loaded.
+        """
+        dec = self._native_decoder()
+        indices = [int(i) for i in indices]
+        keys = [self.filenames[i] for i in indices]
+        rng = self.rng
+
+        if self.train_pairs:
+            wrong = []
+            for i in indices:
+                w = int(rng.integers(0, len(self.filenames)))
+                if w == i:
+                    w = int(rng.integers(0, len(self.filenames)))
+                wrong.append(w)
+            all_keys = keys + [self.filenames[w] for w in wrong]
+        else:
+            all_keys = keys
+        paths = [self._image_path(k) for k in all_keys]
+        bboxes = None
+        if self.bbox is not None:
+            bboxes = np.asarray([self.bbox[k] for k in all_keys], np.float32)
+        outs = dec.decode_batch(paths, bboxes=bboxes,
+                                train=self.train_pairs, seed=seed)
+        n = len(indices)
+        batch: Dict[str, Any] = {'key': keys}
+        if self.train_pairs:
+            batch['imgs'] = tuple(o[:n] for o in outs)
+            batch['wrong_imgs'] = tuple(o[n:] for o in outs)
+            cap_ix = [int(rng.integers(0, self.embeddings.shape[1]))
+                      for _ in indices]
+            batch['embedding'] = np.stack(
+                [self.embeddings[i, c, :] for i, c in zip(indices, cap_ix)])
+            batch['cls'] = np.stack(
+                [np.asarray(self._class_vector(i)) for i in indices])
+        else:
+            batch['imgs'] = tuple(outs)
+            batch['embeddings'] = np.stack(
+                [self.embeddings[i] for i in indices])
+            batch['cls'] = np.stack([
+                np.asarray(np.int64(self.class_id[i]) if not self.is_coco
+                           else self._class_vector(i)) for i in indices])
+        self.native_batches += 1
+        return batch
 
     # -- item assembly (datasets.py:294-366) ---------------------------
     def _class_vector(self, index: int):

@@ -1,10 +1,11 @@
 """Batched, prefetching data loader of the PyTorch port.
 
-The port's own copy of ``text2img_ekl_tpu/data/loader.py`` without the
-native C++ decode path (ROADMAP.md M9): a thread-pool PIL decode + a
-double-buffered prefetch queue in place of torch's DataLoader worker
-processes (main.py:133-135). PIL/numpy release the GIL during
-decode/resize, and the next batch is assembled while the device steps.
+The port's own copy of ``text2img_ekl_tpu/data/loader.py``: a
+double-buffered prefetch queue fed by the native C++ batch decode
+(``TextDataset.batch_items`` with ``native_decode``) or by a thread-pool
+PIL decode, in place of torch's DataLoader worker processes
+(main.py:133-135). Both release the GIL while they decode and resize, and
+the next batch is assembled while the device steps.
 
 Semantics kept from the reference: drop_last batching, reshuffle each epoch,
 one epoch == one pass over the dataset.
@@ -18,6 +19,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
+
+from .native_loader import NativeUnavailable
 
 
 def _stack_items(items: List[Dict[str, Any]]) -> Dict[str, Any]:
@@ -72,6 +75,8 @@ class DataLoader:
         self.collate = collate_fn or _stack_items
         self._epoch = 0
         self._seed = seed
+        # why the native decode fell back to PIL (said once per loader)
+        self._native_unavailable: Optional[NativeUnavailable] = None
         if not (0 <= shard_id < num_shards):
             raise ValueError('shard_id %d not in [0, %d)'
                              % (shard_id, num_shards))
@@ -123,12 +128,30 @@ class DataLoader:
         stop = threading.Event()
 
         def produce():
+            # Batch-granular native C++ decode where the dataset offers it
+            # (TextDataset.batch_items); per-item PIL decode in the thread
+            # pool otherwise, or once the native library proves
+            # unavailable on this host.
+            use_native = (getattr(self.dataset, 'native_decode', False)
+                          and hasattr(self.dataset, 'batch_items')
+                          and self._native_unavailable is None)
             try:
                 with ThreadPoolExecutor(self.num_workers) as pool:
                     for b in range(n_batches):
                         if stop.is_set():
                             return
                         batch_idx = indices[b * bs:(b + 1) * bs]
+                        if use_native:
+                            try:
+                                q.put(self.dataset.batch_items(
+                                    batch_idx,
+                                    seed=self._seed + (epoch << 20) + b))
+                                continue
+                            except NativeUnavailable as e:
+                                print('!! native decode unavailable, '
+                                      'using PIL: %s' % e)
+                                self._native_unavailable = e
+                                use_native = False
                         fetch = getattr(self.dataset, 'item', None)
                         if fetch is not None:
                             # one deterministic Generator PER ITEM: the

@@ -27,7 +27,9 @@ strategy:
   a checkpoint directory, whose EMA it samples with ``TPU_EMA_EVAL``):
   each test batch samples its 10 captions in one forward, quantises on the
   device, and writes one PNG per image under the reference's directory and
-  file names. Host noise comes from ``np.random.default_rng(100)`` exactly
+  file names, on the native writer's threads while the next batch samples
+  (joined before ``evaluate`` returns; ``T2I_NATIVE_WRITE=0`` writes with
+  PIL). Host noise comes from ``np.random.default_rng(100)`` exactly
   as in the JAX package; device draws (CA eps, class priors) come from a
   ``torch.Generator`` seeded per sampler call. With ``TPU_EVAL_DIRECT``
   the sampler's uint8 stacks go straight from the device into the IS
@@ -56,7 +58,8 @@ from ..data.transforms import build_eval_transform, build_train_transform
 from ..io_utils.checkpoint import (CheckpointManager, parse_epoch_from_path,
                                    restore_generator_state,
                                    restore_train_state)
-from ..io_utils.images import save_image_grid, save_single_images
+from ..io_utils.images import (flush_writes, save_image_grid,
+                               save_single_images)
 from ..io_utils.logging import MetricsLogger
 from ..io_utils.weights import (RANDOM_INCEPTION_SEED,
                                 load_pth_discriminator, load_pth_generator,
@@ -149,13 +152,11 @@ class CondGANTrainer:
                 num_items=max(512, self.batch_size * 4),
                 text_dim=cfg.TEXT.DIMENSION, **kw)
         else:
-            if cfg.TPU_NATIVE_DECODE:
-                print('TPU_NATIVE_DECODE: the port decodes images with PIL '
-                      '(the native C++ decoder is ROADMAP.md M9)')
             transform = (build_train_transform(cfg.imsize) if train
                          else build_eval_transform(cfg.imsize))
             ds = TextDataset(cfg.DATA_DIR, split, cfg.EMBEDDING_TYPE,
-                             transform=transform, **kw)
+                             transform=transform,
+                             native_decode=bool(cfg.TPU_NATIVE_DECODE), **kw)
         return DataLoader(ds, self.batch_size, shuffle=train, drop_last=True,
                           num_workers=int(cfg.WORKERS))
 
@@ -520,6 +521,8 @@ class CondGANTrainer:
                     continue
                 if event is not None:
                     event.synchronize()
+                # the native writer copies at enqueue: the pinned host copy
+                # is free once save_single_images returns
                 arr = pixels.numpy()
                 for si in range(keep):
                     save_single_images(arr[si], names, save_dir, si, pcls,
@@ -576,7 +579,16 @@ class CondGANTrainer:
         if direct:
             return self._write_direct_scores(save_dir, count, is_scorer,
                                              fid_scorer)
-        print('Save images ok; Number of images: %d' % count)
+        write_errors = flush_writes()  # join the async native PNG writer
+        if write_errors:
+            # the images on disk, not the attempts: each sampled image is
+            # one PNG write
+            print('!! %d image writes failed' % write_errors)
+            print('Save images DONE WITH ERRORS; Number of images '
+                  'written: %d (of %d sampled)'
+                  % (count - write_errors, count))
+        else:
+            print('Save images ok; Number of images: %d' % count)
         return save_dir
 
     def _make_fid_scorer(self):

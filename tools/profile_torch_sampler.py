@@ -177,7 +177,8 @@ def main() -> int:
 
     # the host side of evaluate: one batch's D2H copy and PNG writes
     import shutil
-    from text2img_ekl_tpu_torch.io_utils.images import save_single_images
+    from text2img_ekl_tpu_torch.io_utils.images import (flush_writes,
+                                                        save_single_images)
     imgs = caption_sample(G, noise, emb, generator=gen)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -188,7 +189,10 @@ def main() -> int:
     t0 = time.perf_counter()
     for si in range(c):
         save_single_images(host[si], names, tmp, si, [0] * b, cfg.imsize, 0)
+    errors = flush_writes()  # the native writer's threads finish here
     png_s = time.perf_counter() - t0
+    if errors:
+        raise RuntimeError('%d PNG writes failed' % errors)
     shutil.rmtree(tmp, ignore_errors=True)
     print('host per batch of %d images: D2H %.1f ms, PNG writes %.1f ms '
           '(%.1f images/s)' % (b * c, d2h_s * 1e3, png_s * 1e3,
