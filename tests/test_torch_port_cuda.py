@@ -49,11 +49,13 @@ tests (tests/test_torch_port_k4_f32.py) hold to the JAX package.
 
 import math
 import os
+import threading
 
 import numpy as np
 import pytest
 import torch
 
+from text2img_ekl_tpu_torch import spans
 from text2img_ekl_tpu_torch.config import cfg_from_file
 from text2img_ekl_tpu_torch.ops import bn_glu
 from text2img_ekl_tpu_torch.ops import capsule_cuda as cc
@@ -609,10 +611,9 @@ def test_variants_raise_on_what_they_do_not_take(card):
                 fn(x, w, nb=0)
 
 
-def _tiny_step_metrics(card, **switches):
-    """One training step at GF/DF_DIM 8, batch 4, float32 (TF32 off), on the
-    CPU and on the card from the same seeded weights, batch and draws:
-    (metrics by device, the card's launches of every kernel)."""
+def _tiny_step_inputs(**switches):
+    """The flagship at GF/DF_DIM 8, batch 4, float32, with a seeded host
+    batch and draws: (cfg, batch, draws), numpy."""
     cfg = cfg_from_file(os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'cfg',
         'birds_2stg_splitz_cap_ca.realcls.yml'))
@@ -639,19 +640,30 @@ def _tiny_step_metrics(card, **switches):
                                         dtype=np.float32),
              'eps_cls': rng.standard_normal((4, cfg.GAN.MANIFD_DIM),
                                             dtype=np.float32)}
+    return cfg, host, draws
+
+
+def _on(dev, tree):
+    def put(a):
+        if isinstance(a, tuple):
+            return tuple(torch.from_numpy(x).to(dev) for x in a)
+        return torch.from_numpy(a).to(dev)
+
+    return {k: put(v) for k, v in tree.items()}
+
+
+def _tiny_step_metrics(card, **switches):
+    """One training step at GF/DF_DIM 8, batch 4, float32 (TF32 off), on the
+    CPU and on the card from the same seeded weights, batch and draws:
+    (metrics by device, the card's launches of every kernel)."""
+    cfg, host, draws = _tiny_step_inputs(**switches)
     metrics = {}
     for dev in ('cpu', card):
-        def put(a):
-            if isinstance(a, tuple):
-                return tuple(torch.from_numpy(x).to(dev) for x in a)
-            return torch.from_numpy(a).to(dev)
-
         state = create_train_state(cfg, dev, seed=0)
         cc.reset_launches()
         bn_glu.bn_glu_kernel.launches = conv_dw.dw3x3_kernel.launches = 0
-        m, fakes = make_train_step(cfg)(
-            state, {k: put(v) for k, v in host.items()}, 0,
-            {k: put(v) for k, v in draws.items()})
+        m, fakes = make_train_step(cfg)(state, _on(dev, host), 0,
+                                        _on(dev, draws))
         metrics[str(dev)] = {k: float(v) for k, v in m.items()}
     launches = dict(cc.launches(), K3=bn_glu.bn_glu_kernel.launches,
                     K4=conv_dw.dw3x3_kernel.launches)
@@ -682,6 +694,66 @@ def test_tiny_fused_step_on_the_card_matches_the_cpu(card):
     assert launches == {'K1-G': 1, 'K1-D': 8, 'K2-G': 1, 'K2-D': 6, 'K3': 8,
                         'K4': 7}
     _assert_metrics_close(metrics)
+
+
+def test_spans_on_the_card(card, monkeypatch):
+    """A CUDA-only profiler session turns the spans on. The capsule
+    backward runs on autograd's device thread, where its span joins the
+    backward phase that called ``backward()``; every span has device
+    milliseconds, and the phases take all but 5 % of the step's. A second
+    step after ``spans.clear()`` makes no new timing event."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, host, draws = _tiny_step_inputs()
+    state = create_train_state(cfg, card, seed=0)
+    step = make_train_step(cfg)
+    batch, draws = _on(card, host), _on(card, draws)
+    step(state, batch, 0, draws)  # kernels built and loaded
+    threads = {}
+    enter = spans.Span.__enter__
+
+    def noting(self):
+        threads.setdefault(self.name, set()).add(threading.get_ident())
+        return enter(self)
+
+    monkeypatch.setattr(spans.Span, '__enter__', noting)
+    spans.clear()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        step(state, batch, 1, draws)
+        torch.cuda.synchronize()
+    (unit,) = spans.units('step')
+    spans.clear()
+    sp = unit['spans']
+    by_id = {s['id']: s for s in sp}
+    assert threads['capsule.bwd'].isdisjoint(threads['step'])
+    assert {by_id[s['parent']]['name'] for s in sp
+            if s['name'] == 'capsule.bwd'} == {'step.d_backward',
+                                                'step.g_backward'}
+    kernels = {}
+    for s in sp:
+        if s['name'].startswith('capsule.'):
+            kernels[s['attrs']['kernel']] = \
+                kernels.get(s['attrs']['kernel'], 0) + 1
+    assert kernels == {'K1-G': 1, 'K1-D': 8, 'K2-G': 1, 'K2-D': 6}
+    assert all(s['device_ms'] is not None and s['device_ms'] >= 0
+               for s in sp)
+    root = sp[0]
+    phases = sum(s['device_ms'] for s in sp if s['parent'] == root['id'])
+    assert 0.95 * root['device_ms'] <= phases <= root['device_ms']
+    # the cleared step's timing events serve the next one
+    made = []
+    event = torch.cuda.Event
+
+    def making(**kw):
+        made.append(kw)
+        return event(**kw)
+
+    monkeypatch.setattr(torch.cuda, 'Event', making)
+    with profile(activities=[ProfilerActivity.CUDA]):
+        step(state, batch, 2, draws)
+        torch.cuda.synchronize()
+    assert made == [] and len(spans.units('step')) == 1
+    spans.clear()
 
 
 def _bn_glu_inputs(shape, dtype, device, seed=0):

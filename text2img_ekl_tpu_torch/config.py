@@ -166,7 +166,8 @@ class Config:
     TPU_EMA_DECAY: float = 0.0
     # Evaluate with the EMA weights when a state carries them.
     TPU_EMA_EVAL: bool = True
-    # Profiler trace of a few steps (JAX package only).
+    # A torch.profiler trace of steps 3-7 of the first epoch, spans
+    # included, written to <output>/Log/profile/: used.
     TPU_PROFILE: bool = False
     # Checkpoint retention (M10).
     TPU_KEEP_CHECKPOINTS: int = 0

@@ -40,6 +40,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import spans
 from . import _build
 from .capsule import capsule_linear, dynamic_routing
 from .tf32 import round_tf32
@@ -871,32 +872,43 @@ def _on_cpu(x, weight) -> bool:
     return x.device.type == 'cpu' and weight.device.type == 'cpu'
 
 
+def _plain_forward(x, weight, num_iterations):
+    return capsule_linear(x, weight, num_iterations, 'dynamic')
+
+
+def _form(x, weight, backward: bool):
+    """(the head a call serves, the name of the kernel that runs it in
+    ``KERNELS``, or 'plain' on the CPU, and its function): the in_length
+    picks the form."""
+    head = 'G' if x.shape[-1] == FACTORED_IN_LENGTH else 'D'
+    if _on_cpu(x, weight):
+        return head, 'plain', _plain_backward if backward else _plain_forward
+    name = ('K2-' if backward else 'K1-') + head
+    return head, name, KERNELS[name]
+
+
 class CapsuleRoutingFunction(torch.autograd.Function):
     """Dynamic routing with a hand-written forward (K1) and backward (K2)
-    on CUDA tensors; on CPU tensors the plain routing and its autograd."""
+    on CUDA tensors; on CPU tensors the plain routing and its autograd.
+    Each call is a ``capsule.fwd`` or ``capsule.bwd`` span (``spans.py``)
+    that names its head and kernel."""
 
     @staticmethod
     def forward(ctx, x, weight, num_iterations):
         ctx.save_for_backward(x, weight)
         ctx.num_iterations = num_iterations
-        if _on_cpu(x, weight):
-            return capsule_linear(x, weight, num_iterations, 'dynamic')
-        if x.shape[-1] == FACTORED_IN_LENGTH:
-            return routing_fwd_factored(x, weight, num_iterations)
-        return routing_fwd_votes(x, weight, num_iterations)
+        head, kernel, fwd = _form(x, weight, backward=False)
+        with spans.span('capsule.fwd', head=head, kernel=kernel):
+            return fwd(x, weight, num_iterations)
 
     @staticmethod
     def backward(ctx, dv):
         x, weight = ctx.saved_tensors
         need_dx, need_dw = ctx.needs_input_grad[:2]
-        if _on_cpu(x, weight):
-            bwd = _plain_backward
-        elif x.shape[-1] == FACTORED_IN_LENGTH:
-            bwd = routing_bwd_factored
-        else:
-            bwd = routing_bwd_votes
-        dx, dw = bwd(x, weight, dv.float(), ctx.num_iterations, need_dx,
-                     need_dw)
+        head, kernel, bwd = _form(x, weight, backward=True)
+        with spans.span('capsule.bwd', head=head, kernel=kernel):
+            dx, dw = bwd(x, weight, dv.float(), ctx.num_iterations, need_dx,
+                         need_dw)
         return dx, dw, None
 
 

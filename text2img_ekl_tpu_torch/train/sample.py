@@ -17,6 +17,8 @@ from typing import List, Optional
 
 import torch
 
+from .. import spans
+
 
 def pm1_to_uint8_dev(x: torch.Tensor) -> torch.Tensor:
     """[-1, 1] -> uint8 pixels on the tensor's device, truncating like
@@ -76,8 +78,9 @@ def caption_sample(G, noise: torch.Tensor, emb: torch.Tensor,
             t = t.unsqueeze(0).expand(n_cap, *t.shape)
         return t.reshape(n_cap * bsz, *t.shape[2:])
 
-    h_codes = G(fold(noise), fold(emb), fold(cls), fold(cls_prior),
-                fold(eps), fold(eps_cls), generator)[0]
-    img = G.decode(h_codes[-1], len(h_codes) - 1)
-    img = pm1_to_uint8_dev(img).permute(0, 2, 3, 1)
-    return img.reshape(n_cap, bsz, *img.shape[1:]).contiguous()
+    with spans.span('sample.call', rows=n_cap * bsz):
+        h_codes = G(fold(noise), fold(emb), fold(cls), fold(cls_prior),
+                    fold(eps), fold(eps_cls), generator)[0]
+        img = G.decode(h_codes[-1], len(h_codes) - 1)
+        img = pm1_to_uint8_dev(img).permute(0, 2, 3, 1)
+        return img.reshape(n_cap, bsz, *img.shape[1:]).contiguous()

@@ -28,6 +28,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from .. import spans
 from .losses import bce, ce_loss, color_consistency_loss, kl_loss
 from .state import TrainState
 
@@ -101,6 +102,10 @@ def make_train_step(cfg):
 
     def step_fn(state: TrainState, batch: Dict[str, Any], seed: int,
                 draws: Optional[Dict[str, torch.Tensor]] = None):
+        with spans.span('step', rows=batch['txt'].shape[0]):
+            return _step(state, batch, seed, draws)
+
+    def _step(state, batch, seed, draws):
         G, Ds = state.G, state.Ds
         num_ds = len(Ds)
         real = [normalize_images(x) for x in batch['real']]
@@ -123,35 +128,41 @@ def make_train_step(cfg):
             D.train()
 
         # ---- phase 1: one generator forward, graph kept
-        h_codes, mu1, mu2, lv1, lv2, _, _ = G(
-            noise, txt, batch['cls_onehot'], eps=draws.get('eps'),
-            eps_cls=draws.get('eps_cls'), generator=gen)
-        imgs = G.image(h_codes)
-        mu_d = fuse_mu(mu1, mu2, cat_z)
-        mu_sg = mu_d.detach()
+        with spans.span('step.g_forward'):
+            h_codes, mu1, mu2, lv1, lv2, _, _ = G(
+                noise, txt, batch['cls_onehot'], eps=draws.get('eps'),
+                eps_cls=draws.get('eps_cls'), generator=gen)
+            imgs = G.image(h_codes)
+            mu_d = fuse_mu(mu1, mu2, cat_z)
+            mu_sg = mu_d.detach()
 
         # ---- phase 2: D updates on real / wrong / detached fake
         errD_all = errD_match_all = errD_uncond_all = errD_cls_all = 0.0
         for i, D in enumerate(Ds):
-            rl = D(real[i], mu_sg)
-            wl = D(wrong[i], mu_sg)
-            fl = D(imgs[i].detach(), mu_sg)
-            errD_real = bce(rl[0], ones)
-            errD_wrong = bce(wl[0], zeros)
-            errD_fake = bce(fl[0], zeros)
-            if uncond_coeff > 0:
-                errD_match = errD_real + errD_wrong + errD_fake
-                errD_uncond = uncond_coeff * (
-                    bce(rl[1], ones) + bce(wl[1], ones) + bce(fl[1], zeros))
-                errD_cls = ce_loss(rl[2], real_cp) + ce_loss(fl[2], fake_cp)
-                errD = errD_match + errD_uncond + errD_cls
-            else:
-                errD_match = errD_real + 0.5 * (errD_wrong + errD_fake)
-                errD_uncond = errD_cls = torch.zeros((), device=dev)
-                errD = errD_match
-            state.d_opts[i].zero_grad(set_to_none=True)
-            errD.backward()
-            state.d_opts[i].step()
+            with spans.span('step.d_passes', d=i):
+                rl = D(real[i], mu_sg)
+                wl = D(wrong[i], mu_sg)
+                fl = D(imgs[i].detach(), mu_sg)
+                errD_real = bce(rl[0], ones)
+                errD_wrong = bce(wl[0], zeros)
+                errD_fake = bce(fl[0], zeros)
+                if uncond_coeff > 0:
+                    errD_match = errD_real + errD_wrong + errD_fake
+                    errD_uncond = uncond_coeff * (
+                        bce(rl[1], ones) + bce(wl[1], ones)
+                        + bce(fl[1], zeros))
+                    errD_cls = (ce_loss(rl[2], real_cp)
+                                + ce_loss(fl[2], fake_cp))
+                    errD = errD_match + errD_uncond + errD_cls
+                else:
+                    errD_match = errD_real + 0.5 * (errD_wrong + errD_fake)
+                    errD_uncond = errD_cls = torch.zeros((), device=dev)
+                    errD = errD_match
+            with spans.span('step.d_backward', d=i):
+                state.d_opts[i].zero_grad(set_to_none=True)
+                errD.backward()
+            with spans.span('step.d_adam', d=i):
+                state.d_opts[i].step()
             errD_all = errD_all + errD.detach()
             errD_match_all = errD_match_all + errD_match.detach()
             errD_uncond_all = errD_uncond_all + errD_uncond.detach()
@@ -161,29 +172,32 @@ def make_train_step(cfg):
         for D in Ds:
             D.requires_grad_(False)
         try:
-            match = uncond = cls_ = torch.zeros((), device=dev)
-            for i, D in enumerate(Ds):
-                o = D(imgs[i], mu_d)
-                match = match + bce(o[0], ones)
-                if uncond_coeff > 0:
-                    uncond = uncond + uncond_coeff * bce(o[1], ones)
-                    cls_ = cls_ + ce_loss(o[2], real_cp)
-            kl_sen, kl_cls = kl_loss(mu1, lv1), kl_loss(mu2, lv2)
-            errG = match + uncond + cls_ + (kl_sen + kl_cls) * kl_coeff
-            if color_coeff > 0 and num_ds > 1:
-                errG = errG + color_consistency_loss(imgs[:num_ds],
-                                                     color_coeff)
-            state.g_opt.zero_grad(set_to_none=True)
-            errG.backward()
+            with spans.span('step.g_loss'):
+                match = uncond = cls_ = torch.zeros((), device=dev)
+                for i, D in enumerate(Ds):
+                    o = D(imgs[i], mu_d)
+                    match = match + bce(o[0], ones)
+                    if uncond_coeff > 0:
+                        uncond = uncond + uncond_coeff * bce(o[1], ones)
+                        cls_ = cls_ + ce_loss(o[2], real_cp)
+                kl_sen, kl_cls = kl_loss(mu1, lv1), kl_loss(mu2, lv2)
+                errG = match + uncond + cls_ + (kl_sen + kl_cls) * kl_coeff
+                if color_coeff > 0 and num_ds > 1:
+                    errG = errG + color_consistency_loss(imgs[:num_ds],
+                                                         color_coeff)
+            with spans.span('step.g_backward'):
+                state.g_opt.zero_grad(set_to_none=True)
+                errG.backward()
         finally:
             for D in Ds:
                 D.requires_grad_(True)
-        state.g_opt.step()
-        if ema_decay > 0 and state.g_ema is not None:
-            with torch.no_grad():
-                for n, p in G.named_parameters():
-                    state.g_ema[n].mul_(ema_decay).add_(
-                        p, alpha=1.0 - ema_decay)
+        with spans.span('step.g_adam'):
+            state.g_opt.step()
+            if ema_decay > 0 and state.g_ema is not None:
+                with torch.no_grad():
+                    for n, p in G.named_parameters():
+                        state.g_ema[n].mul_(ema_decay).add_(
+                            p, alpha=1.0 - ema_decay)
         state.step += 1
 
         with torch.no_grad():

@@ -52,6 +52,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from .. import spans
 from ..config import Config
 from ..data import DataLoader, SyntheticTextDataset, TextDataset
 from ..data.transforms import build_eval_transform, build_train_transform
@@ -94,10 +95,48 @@ IS_THRESHOLD_CUB_FINETUNED = 3.4
 # steps between two records of the scalars (cub_trainer_splitz_cap_ca.py:
 # 458-460)
 LOG_EVERY = 100
+# TPU_PROFILE records these steps [first, end) of the first epoch, as the
+# JAX trainer does
+PROFILE_STEPS = (3, 8)
 
 
 def _seed(stream: int, n: int) -> int:
     return (stream << 32) + n
+
+
+class _StepProfile:
+    """``TPU_PROFILE``: a ``torch.profiler`` session over ``PROFILE_STEPS``
+    of ``epoch`` (CPU and CUDA activities on the card, the CPU elsewhere),
+    which turns the spans on (``spans.py``) and writes its Chrome trace
+    under ``<log_dir>/profile/`` when it stops."""
+
+    def __init__(self, device: torch.device, log_dir: str, epoch: int):
+        self.device = device
+        self.path = os.path.join(log_dir, 'profile', 'epoch%d_steps%d-%d.json'
+                                 % (epoch, PROFILE_STEPS[0],
+                                    PROFILE_STEPS[1] - 1))
+        self.prof = None
+
+    def start(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == 'cuda':
+            activities.append(ProfilerActivity.CUDA)
+        self.prof = profile(activities=activities)
+        self.prof.start()
+
+    def stop(self) -> None:
+        """Stop and write the trace; nothing if not recording."""
+        if self.prof is None:
+            return
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        prof, self.prof = self.prof, None
+        prof.stop()
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        prof.export_chrome_trace(self.path)
+        print('profile of steps %d-%d: %s' % (PROFILE_STEPS[0],
+                                              PROFILE_STEPS[1] - 1, self.path))
 
 
 class CondGANTrainer:
@@ -260,10 +299,14 @@ class CondGANTrainer:
                 old_handlers[sig] = signal.signal(sig, request_stop)
             except (ValueError, OSError):
                 pass  # not the main thread
+        profile = (_StepProfile(self.device, self.log_dir, start_epoch)
+                   if cfg.TPU_PROFILE else None)
         try:
             self._train_epochs(state, step_fn, scorer, start_epoch, stop,
-                               max_steps)
+                               max_steps, profile)
         finally:
+            if profile is not None:
+                profile.stop()
             for sig, h in old_handlers.items():
                 signal.signal(sig, h)
             self.logger.close()
@@ -271,7 +314,11 @@ class CondGANTrainer:
 
     def _train_epochs(self, state: TrainState, step_fn, scorer,
                       start_epoch: int, stop: Dict[str, bool],
-                      max_steps: Optional[int]) -> None:
+                      max_steps: Optional[int],
+                      profile: Optional[_StepProfile]) -> None:
+        """The epochs. Each iteration of the step loop is a ``train.iter``
+        span (``spans.py``); ``profile`` records steps ``PROFILE_STEPS`` of
+        the first epoch."""
         cfg = self.cfg
         count = state.step
         taken = 0
@@ -283,23 +330,38 @@ class CondGANTrainer:
             start_t = time.time()
             metrics: Dict[str, torch.Tensor] = {}
             last_batch = None
-            for step_i, host_batch in enumerate(self.data_loader):
-                last_batch = self._device_batch(host_batch)
-                # the draws are keyed on the step count, so a resumed run
-                # draws what the uninterrupted run draws
-                metrics, fakes = step_fn(state, last_batch,
-                                         _seed(STEP_SEED_STREAM, count))
-                count += 1
-                taken += 1
-                # after every N steps of an epoch (N = 2: steps 1, 3, 5..,
-                # the reference's every other step, cub_trainer:613), the
-                # step's own fakes, on the device: one tower forward is the
-                # stream's whole cost
-                if scorer is not None and (step_i + 1) % every == 0:
-                    scorer.add(fakes)
-                if count % LOG_EVERY == 0:
-                    self.logger.log_scalars(
-                        count, {k: float(v) for k, v in metrics.items()})
+            batches = iter(self.data_loader)
+            profiled = profile is not None and epoch == start_epoch
+            for step_i in itertools.count():
+                if profiled and step_i == PROFILE_STEPS[0]:
+                    profile.start()
+                with spans.span('train.iter'):
+                    # the loader's wait and the copy to the device; the
+                    # epoch's last iteration holds only the loader's end
+                    with spans.span('train.batch'):
+                        host_batch = next(batches, None)
+                        if host_batch is not None:
+                            last_batch = self._device_batch(host_batch)
+                    if host_batch is None:
+                        break
+                    # the draws are keyed on the step count, so a resumed
+                    # run draws what the uninterrupted run draws
+                    metrics, fakes = step_fn(state, last_batch,
+                                             _seed(STEP_SEED_STREAM, count))
+                    count += 1
+                    taken += 1
+                    # after every N steps of an epoch (N = 2: steps 1, 3,
+                    # 5.., the reference's every other step, cub_trainer:
+                    # 613), the step's own fakes, on the device: one tower
+                    # forward is the stream's whole cost
+                    if scorer is not None and (step_i + 1) % every == 0:
+                        with spans.span('train.is_stream'):
+                            scorer.add(fakes)
+                    if count % LOG_EVERY == 0:
+                        self.logger.log_scalars(
+                            count, {k: float(v) for k, v in metrics.items()})
+                if profiled and step_i == PROFILE_STEPS[1] - 1:
+                    profile.stop()
                 if stop['flag']:
                     # resumes at the start of this epoch
                     self.ckpt.save(state, epoch)
@@ -307,6 +369,8 @@ class CondGANTrainer:
                     return
                 if max_steps is not None and taken >= max_steps:
                     break
+            if profiled:
+                profile.stop()  # an epoch shorter than PROFILE_STEPS
             m = self.last_metrics = {k: float(v) for k, v in metrics.items()}
             print('[%d/%d][BN=%d][%d stages]\n'
                   '  Loss_D_all: %.2f match: %.2f uncond: %.2f cls: %.2f\n'
