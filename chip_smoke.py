@@ -113,7 +113,19 @@ found; any failure raises and exits non-zero:
      fabricated 500x375 CUB JPEGs with TPU_NATIVE_DECODE: every batch from
      the native decoder, finite losses, phase 8's launches per step; the
      epoch's time against synthetic data; tools/bench_loader_torch.py
-     --n 256 --bs 32.
+     --n 256 --bs 32;
+ 18. K5 (BatchNorm with its GLU / LeakyReLU / no epilogue): one flagship
+     training step (batch 32) and one sampler call, in which K5 ran once
+     (3 kernels a train forward and 3 a backward, 1 an eval forward) for
+     every rank-4 BatchNorm call a forward hook records, at the shapes of
+     K5_STEP_CALLS, and no rank-4 BatchNorm on the card took the eager
+     chain; then at each of those shapes at the benchmark's batches
+     (train at 512, the sampler's eval at 320), bfloat16: K5's output,
+     gradients and running statistics against the eager chain it
+     replaces (the card tests' bars), and its forward and backward device
+     time, each from a cold L2, against its bound (bytes / 3.35 TB/s,
+     which no time may beat) and the eager chain's, totalled over the
+     step's calls.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, where
@@ -182,6 +194,51 @@ FUSED_TRAIN_STEPS = 2
 K3_SHAPES = (((32, 1024, 8, 8), 1), ((32, 512, 16, 16), 1),
              ((32, 256, 32, 32), 1), ((32, 128, 64, 64), 4),
              ((32, 64, 128, 128), 1))
+# K5's rank-4 BatchNorm calls in a flagship training step, batch aside:
+# ((C, H, W), epilogue, forwards a step), each forward with its backward:
+# the G's 10; 4 passes through each D (three in its update, one in G's
+# loss) with 4 and 6. Phase 18 holds the calls a forward hook records in a
+# step to this table, and runs K5 at these shapes at K5_BATCH, the
+# benchmark's training batch.
+K5_STEP_CALLS = (((1024, 8, 8), 'glu', 1), ((512, 16, 16), 'glu', 1),
+                 ((256, 32, 32), 'glu', 1), ((128, 64, 64), 'glu', 4),
+                 ((64, 64, 64), None, 2), ((64, 128, 128), 'glu', 1),
+                 ((128, 16, 16), 'leaky', 4), ((256, 8, 8), 'leaky', 4),
+                 ((512, 4, 4), 'leaky', 16), ((128, 32, 32), 'leaky', 4),
+                 ((256, 16, 16), 'leaky', 4), ((512, 8, 8), 'leaky', 4),
+                 ((1024, 4, 4), 'leaky', 4))
+K5_BATCH = 512
+# K5 against the eager chain it replaces (BatchNormAct.composition) on the
+# same inputs, here and in the card tests (tests/test_torch_port_cuda.py),
+# through _k5_compare. Both compute the statistics in float32, summed in
+# other orders (eval: cuDNN's inference kernel folds the affine otherwise),
+# so a BatchNorm output may round to its neighbouring value of the BatchNorm
+# dtype. An activation carries such a flip on: a GLU's gate through its
+# logistic to several ulps of its output (3.0 measured on an H100, in eval
+# mode at the sampler's batch of 320). So the BatchNorm part and the epilogue
+# are held apart. Bars: K5's BatchNorm output (epilogue=False) within
+# K5_FWD_ULPS ulps of the BatchNorm dtype + K5_FWD_ATOL max|ref| (values
+# within float32 rounding of zero) of the chain's; K5's output the eager
+# activation of that BatchNorm output bit for bit; in bfloat16 at most
+# K5_FWD_SHARE of the elements of either differ at all (measured: at most
+# 5e-5; in float32 every element of a channel moves with its statistics); the
+# running statistics within K5_STATS_RTOL |ref| + K5_STATS_ATOL max|ref|; dx,
+# dweight and dbias no farther from the chain evaluated in float64 than
+# K5_GRAD_RATIO times the eager chain's own distance (L2), + K5_GRAD_FLOOR of
+# the float64 gradient's norm (float32 rounding of a channel's sums: the
+# ratio read 0.06-1.05 at the step's shapes and up to 1.95 where both sit
+# ~3e-7 of the norm apart at [7, 8, 3, 3]).
+K5_FWD_ULPS = 1
+K5_FWD_ATOL = 1e-6
+K5_FWD_SHARE = 1e-3
+K5_STATS_RTOL, K5_STATS_ATOL = 1e-5, 1e-6
+K5_GRAD_RATIO = 1.5
+K5_GRAD_FLOOR = 1e-6
+K5_POLICIES = {'bf16': ('bfloat16', 'bfloat16'),
+               'f32': ('float32', 'float32')}
+# a timed call waits behind a sleep kernel of this many cycles (~5 ms on
+# an H100), long enough for the host to queue all of the call first
+SLEEP_CYCLES = 10_000_000
 # K4's inputs at the flagship: (x [B, C, H, W], F) and launches per step
 K4_SHAPES = (((32, 64, 64, 64), 128, 2), ((32, 64, 64, 64), 64, 2),
              ((32, 64, 128, 128), 64, 1))
@@ -406,14 +463,19 @@ def _k4_work(x_shape, f, itemsize):
 
 
 def _pinned_kinks(nets, leaky_relu, masks, replay):
-    """Forward hooks on every LeakyReLU of ``nets``. Recording, they append
-    to ``masks`` which inputs of each call were positive; replaying, each
-    call takes the recorded branch (x or 0.2 x), so that a second run goes
-    through the same pieces of the piecewise-linear networks. An input
-    within rounding of zero takes the other slope under another summation
-    order (ROADMAP F10), which moves a whole receptive field's gradient.
-    Returns (hook handles, [flips pinned])."""
+    """Forward hooks on every LeakyReLU of ``nets``, the modules and the
+    epilogues of ``BatchNormAct`` (act 'leaky'). Recording, they append to
+    ``masks`` which inputs of each call were positive (an epilogue's from
+    the sign of its output, which is its input's); replaying, each call
+    takes the recorded branch (x or 0.2 x), so that a second run goes
+    through the same pieces of the piecewise-linear networks (a replayed
+    ``BatchNormAct`` runs with ``epilogue=False``, and the hook applies the
+    branch to its BatchNorm output). An input within rounding of zero
+    takes the other slope under another summation order (ROADMAP F10),
+    which moves a whole receptive field's gradient. Returns (hook handles,
+    [flips pinned])."""
     import torch
+    from text2img_ekl_tpu_torch.nn.blocks import BatchNormAct
     calls, flips = iter(masks), [0]
 
     def hook(module, args, out):
@@ -425,8 +487,26 @@ def _pinned_kinks(nets, leaky_relu, masks, replay):
         flips[0] += int((mask != (x > 0)).sum())
         return torch.where(mask, x, 0.2 * x).to(module.dtype)
 
-    return [m.register_forward_hook(hook) for net in nets
-            for m in net.modules() if isinstance(m, leaky_relu)], flips
+    def bn_pre(module, args, kwargs):
+        return args, dict(kwargs, epilogue=False)
+
+    def bn_hook(module, args, out):
+        if not replay:
+            masks.append(out > 0)
+            return None
+        return hook(module, (out,), out)
+
+    handles = []
+    for net in nets:
+        for m in net.modules():
+            if isinstance(m, leaky_relu):
+                handles.append(m.register_forward_hook(hook))
+            elif isinstance(m, BatchNormAct) and m.act == 'leaky':
+                if replay:
+                    handles.append(m.register_forward_pre_hook(
+                        bn_pre, with_kwargs=True))
+                handles.append(m.register_forward_hook(bn_hook))
+    return handles, flips
 
 
 def _capsule_inputs(rng, shape, dev):
@@ -793,6 +873,371 @@ def _device_busy_ms(fn, calls=5):
         torch.cuda.synchronize()
     return sum(e.time_range.elapsed_us() for e in prof.events()
                if str(e.device_type).endswith('CUDA')) / calls / 1e3
+
+
+def _k5_module(shape, act, policy, mode, device, seed=0):
+    """A BatchNormAct with random affine and running statistics, in
+    ``mode`` (train, eval or frozen), its input x [B, C, H, W] and an output
+    gradient."""
+    import numpy as np
+    import torch
+    from text2img_ekl_tpu_torch.nn.blocks import BatchNormAct
+    from text2img_ekl_tpu_torch.ops import bn_act
+    dtype, bn_dtype = (getattr(torch, t) for t in K5_POLICIES[policy])
+    rng = np.random.default_rng(seed)
+    c = shape[1]
+
+    def put(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(device)
+
+    m = BatchNormAct(c, act, dtype, bn_dtype).to(device)
+    with torch.no_grad():
+        m.weight.copy_(put(rng.normal(1.0, 0.3, c)))
+        m.bias.copy_(put(rng.normal(0.0, 0.3, c)))
+        m.running_mean.copy_(put(rng.normal(0.3, 0.3, c)))
+        m.running_var.copy_(put(rng.uniform(0.5, 1.5, c)))
+    m.train(mode != 'eval')
+    m.update_running_stats = mode != 'frozen'
+    x = (put(rng.standard_normal(shape, dtype=np.float32)) * 2 + 0.5
+         ).to(dtype)
+    oshape = (shape[0], c // 2) + tuple(shape[2:]) if act == 'glu' \
+        else tuple(shape)
+    dout = put(rng.standard_normal(oshape, dtype=np.float32)).to(
+        bn_act.out_dtype(dtype, act, bn_dtype))
+    return m, x, dout
+
+
+def _k5_run(m, x, dout, kernel):
+    """(out, dx, dweight, dbias, running_mean, running_var) of a copy of
+    ``m`` through K5 or the eager chain; K5's counters move by one call and
+    its forward's and backward's launches."""
+    import torch
+    from text2img_ekl_tpu_torch.ops import bn_act
+    m = copy.deepcopy(m)
+    xg = x.clone().requires_grad_(True)
+    calls, launches = bn_act.bn_act.calls, bn_act.bn_act.launches
+    out = m(xg) if kernel else m.composition(xg)
+    dx, dw, db = torch.autograd.grad(out, (xg, m.weight, m.bias), dout)
+    torch.cuda.synchronize()
+    # a forward's 3 kernels in train mode, 1 in eval, and a backward's 3
+    want = (calls + kernel, launches + kernel * ((3 if m.training else 1)
+                                                 + 3))
+    if (bn_act.bn_act.calls, bn_act.bn_act.launches) != want:
+        raise AssertionError('K5 counted %d calls and %d launches, not %s'
+                             % (bn_act.bn_act.calls, bn_act.bn_act.launches,
+                                want))
+    return (out.detach(), dx, dw, db, m.running_mean.clone(),
+            m.running_var.clone())
+
+
+def _k5_float64(m, x, dout):
+    """(out, dx, dweight, dbias) of the chain in float64: the statistics,
+    the affine, the activation and its gradient, and the BatchNorm
+    gradient in closed form."""
+    import torch
+    from text2img_ekl_tpu_torch.nn.blocks import _BF16_SLOPE
+    xd, dd = x.double(), dout.double()
+    w, b = m.weight.detach().double(), m.bias.detach().double()
+    shape = (1, -1, 1, 1)
+    dims = (0, 2, 3)
+    if m.training:
+        mean = xd.mean(dims)
+        var = torch.clamp((xd * xd).mean(dims) - mean * mean, min=0.0)
+    else:
+        mean, var = m.running_mean.double(), m.running_var.double()
+    rstd = torch.rsqrt(var + m.eps)
+    xhat = (xd - mean.view(shape)) * rstd.view(shape)
+    y = xhat * w.view(shape) + b.view(shape)
+    if m.act == 'glu':
+        c = y.shape[1] // 2
+        a, s = y[:, :c], torch.sigmoid(y[:, c:])
+        out = a * s
+        dy = torch.cat([dd * s, dd * a * s * (1 - s)], 1)
+    elif m.act == 'leaky':
+        slope = _BF16_SLOPE if m.bn_dtype == torch.bfloat16 else 0.2
+        out = torch.where(y > 0, y, slope * y)
+        dy = torch.where(y > 0, dd, slope * dd)
+    else:
+        out, dy = y, dd
+    db = dy.sum(dims)
+    dw = (dy * xhat).sum(dims)
+    dxhat = dy * w.view(shape)
+    if m.training:
+        count = x.numel() // x.shape[1]
+        dx = rstd.view(shape) * (dxhat - dxhat.sum(dims, keepdim=True) / count
+                                 - xhat * (dxhat * xhat).sum(
+                                     dims, keepdim=True) / count)
+    else:
+        dx = dxhat * rstd.view(shape)
+    return out, dx, dw, db
+
+
+def _k5_ulps(out, ref, dtype):
+    """(the worst |out - ref| over its bar, K5_FWD_ULPS ulps of ``dtype``
+    + K5_FWD_ATOL max|ref|; the share of elements that differ)."""
+    import torch
+    o, r = out.float(), ref.float()
+    d = (o - r).abs()
+    big = torch.maximum(o.abs(), r.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(big))
+                     - (7 if dtype == torch.bfloat16 else 23))
+    bound = K5_FWD_ULPS * ulp + K5_FWD_ATOL * r.abs().max()
+    return float((d / bound).max()), float((d > 0).float().mean())
+
+
+def _k5_compare(m, x, dout):
+    """K5 against the eager chain on the same module, input and output
+    gradient, to the K5_* bars: the BatchNorm output, the epilogue on it,
+    the output, the running statistics (updated in train mode, untouched in
+    eval and frozen), and dx, dweight and dbias against the chain in
+    float64. Raises AssertionError where one misses its bar; returns
+    {'max_abs_err': the output's largest |d|, 'share': the share of output
+    elements that differ, 'grad_ratio': the worst gradient's distance from
+    float64 over the eager chain's, 'max_ulps': the output's largest |d| in
+    ulps of its dtype (with the bar's atol)}."""
+    import torch
+    from text2img_ekl_tpu_torch.nn.blocks import _EPILOGUES
+    got = _k5_run(m, x, dout, kernel=True)
+    want = _k5_run(m, x, dout, kernel=False)
+    if got[0].dtype != want[0].dtype or got[0].shape != want[0].shape:
+        raise AssertionError('K5 gave %s %s, the chain %s %s' % (
+            got[0].dtype, tuple(got[0].shape), want[0].dtype,
+            tuple(want[0].shape)))
+    # the BatchNorm part: K5 without its epilogue against the chain's
+    # BatchNorm, a neighbouring rounding at most, on a small share of the
+    # elements in bfloat16
+    with torch.no_grad():
+        y = copy.deepcopy(m)(x, epilogue=False)
+        y_ref = copy.deepcopy(m).composition(x, epilogue=False)
+    worst, share = _k5_ulps(y, y_ref, m.bn_dtype)
+    if worst > 1 or (m.bn_dtype == torch.bfloat16 and share > K5_FWD_SHARE):
+        raise AssertionError('K5 BatchNorm output off the chain: %.3f of '
+                             'its bar, %.2e of the elements differ'
+                             % (worst, share))
+    # the epilogue: the eager activation of K5's own BatchNorm output, bit
+    # for bit
+    if not torch.equal(got[0], y if m.act is None else
+                       _EPILOGUES[m.act](y, m.dtype)):
+        raise AssertionError('K5\'s output is not the eager %s of its '
+                             'BatchNorm output' % m.act)
+    o, r = got[0].float(), want[0].float()
+    d = (o - r).abs()
+    share = float((d > 0).float().mean())
+    if m.bn_dtype == torch.bfloat16 and share > K5_FWD_SHARE:
+        raise AssertionError('K5 output off the chain at %.2e of the '
+                             'elements' % share)
+    # running statistics
+    for name, g, w0, w in zip(('running_mean', 'running_var'), got[4:],
+                              (m.running_mean, m.running_var), want[4:]):
+        if m.training and m.update_running_stats:
+            tol = K5_STATS_RTOL * w.abs() + K5_STATS_ATOL * w.abs().max()
+            if torch.equal(w, w0) or bool(((g - w).abs() > tol).any()):
+                raise AssertionError('K5 %s off the chain or not updated'
+                                     % name)
+        elif not (torch.equal(g, w0) and torch.equal(w, w0)):
+            raise AssertionError('%s moved in %s mode' % (
+                name, 'eval' if not m.training else 'frozen'))
+    # backward against the chain in float64
+    ref = _k5_float64(m, x, dout)
+    ratio = 0.0
+    for name, g, w, f in zip(('dx', 'dweight', 'dbias'), got[1:4],
+                             want[1:4], ref[1:]):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError('K5 %s is %s %s, the chain\'s %s %s' % (
+                name, g.dtype, tuple(g.shape), w.dtype, tuple(w.shape)))
+        e_k = float(torch.linalg.vector_norm(g.double() - f))
+        e_e = float(torch.linalg.vector_norm(w.double() - f))
+        floor = K5_GRAD_FLOOR * float(torch.linalg.vector_norm(f))
+        if e_k > K5_GRAD_RATIO * e_e + floor:
+            raise AssertionError('K5 %s %.3e from float64, the chain %.3e '
+                                 '(bar %.1fx + %.2e)' % (
+                                     name, e_k, e_e, K5_GRAD_RATIO, floor))
+        ratio = max(ratio, e_k / max(e_e, 1e-300))
+    out = {'max_abs_err': float(d.max()), 'share': share,
+           'grad_ratio': ratio,
+           'max_ulps': K5_FWD_ULPS * _k5_ulps(got[0], want[0], m.dtype)[0]}
+    del got, want, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cold_device_ms(fn, reps=5):
+    """Median card ms of one call of ``fn``, by CUDA events around it: each
+    call starts on a cold L2 (a 256 MiB read just before it, so that its
+    inputs come from HBM) and behind a sleep kernel (SLEEP_CYCLES), so that
+    the host has queued the whole call before the card starts it and the
+    events time the card's work alone."""
+    import statistics
+    import torch
+    flush = torch.zeros(1 << 26, dtype=torch.float32, device='cuda')
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.sum()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _k5_calls(nets, run):
+    """Runs ``run()`` with forward hooks on every BatchNorm of ``nets`` and
+    K5's counters at 0. Returns ([(x's shape, epilogue) of each rank-4
+    call], K5's launches); raises unless K5 counted one call for each, and
+    no rank-4 BatchNorm on the card took the eager chain."""
+    import torch
+    from text2img_ekl_tpu_torch.nn.blocks import BatchNorm
+    from text2img_ekl_tpu_torch.ops import bn_act
+    seen = []
+
+    def hook(mod, args, out):
+        if args[0].dim() == 4:
+            seen.append((tuple(args[0].shape), getattr(mod, 'act', 'plain')))
+
+    hooks = [mod.register_forward_hook(hook) for net in nets
+             for mod in net.modules() if isinstance(mod, BatchNorm)]
+    k = bn_act.bn_act
+    k.calls = k.launches = k.eager_calls = 0
+    run()
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    if k.calls != len(seen) or k.eager_calls:
+        raise AssertionError('a rank-4 BatchNorm did not take K5: %d calls, '
+                             'K5 counted %d, the eager chain %d'
+                             % (len(seen), k.calls, k.eager_calls))
+    return seen, k.launches
+
+
+def _bn_act_phase(tcfg, ecfg, card):
+    """18. K5's calls in one flagship training step and in one sampler
+    call, as forward hooks record them, against its counters and
+    K5_STEP_CALLS; then, at each of those shapes at the benchmark's batches
+    (the step's at K5_BATCH in train mode, the sampler's at its own in eval
+    mode), bfloat16: K5 against the eager chain to the card tests' bars
+    (``_k5_compare``), and its forward and backward card time
+    (``_cold_device_ms``) against its bound (bytes / 3.35 TB/s, which it
+    may not beat) and the eager chain's. Returns the kernel record, its
+    totals weighted by the calls the step made."""
+    import collections
+    import numpy as np
+    import torch
+    from text2img_ekl_tpu_torch.models.generator import build_generator
+    from text2img_ekl_tpu_torch.train.sample import caption_sample
+    from text2img_ekl_tpu_torch.train.state import create_train_state
+    from text2img_ekl_tpu_torch.train.step import make_train_step
+    dev = torch.device('cuda')
+    # the calls: a flagship step, then a sampler call
+    state = create_train_state(tcfg, dev, seed=0)
+    batch, draws = _step_batch(np.random.default_rng(18), tcfg, dev)
+    step_calls, step_launches = _k5_calls(
+        (state.G, *state.Ds),
+        lambda: make_train_step(tcfg)(state, batch, 0, draws))
+    G = build_generator(ecfg, train_flag=False).to(dev).eval()
+    b = ecfg.TRAIN.BATCH_SIZE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    sample_calls, sample_launches = _k5_calls((G,), lambda: caption_sample(
+        G, torch.randn((10, b, ecfg.GAN.Z_DIM), device=dev),
+        torch.randn((10, b, ecfg.TEXT.DIMENSION), device=dev),
+        generator=gen))
+    del state, batch, draws, G
+    torch.cuda.empty_cache()
+    table = {(chw, act): n for chw, act, n in K5_STEP_CALLS}
+    step = collections.Counter((shape[1:], act) for shape, act in step_calls)
+    print('phase 18 one flagship step (batch %d) on %s: %d rank-4 '
+          'BatchNorm calls, K5 %d calls and %d launches; one sampler call '
+          '(batch %d): %d calls, %d launches; the eager chain 0'
+          % (tcfg.TRAIN.BATCH_SIZE, card, len(step_calls), len(step_calls),
+             step_launches, 10 * b, len(sample_calls), sample_launches))
+    if step != table:
+        raise AssertionError('the step\'s rank-4 BatchNorms %s are not '
+                             'K5_STEP_CALLS' % sorted(step.items(), key=str))
+    # a train forward launches 3 kernels and its backward 3; eval 1
+    if step_launches != 6 * len(step_calls) or \
+            sample_launches != len(sample_calls):
+        raise AssertionError('K5 launched %d kernels in the step, %d in the '
+                             'sampler call' % (step_launches,
+                                               sample_launches))
+    if not all((shape[1:], act) in table for shape, act in sample_calls):
+        raise AssertionError('the sampler ran a BatchNorm the step did not: '
+                             '%s' % sample_calls)
+    # K5 against the eager chain and its bound at the benchmark's batches
+    cases = [((K5_BATCH,) + chw, act, n, 'train')
+             for chw, act, n in K5_STEP_CALLS]
+    cases += [(shape, act, n, 'eval') for (shape, act), n
+              in collections.Counter(sample_calls).items()]
+    keys = ('k_fwd', 'k_bwd', 'e_fwd', 'e_bwd', 'b_fwd', 'b_bwd')
+    tot = {mode: dict.fromkeys(keys, 0.0) for mode in ('train', 'eval')}
+    err = dict.fromkeys(('max_abs_err', 'share', 'grad_ratio', 'max_ulps'),
+                        0.0)
+    for shape, act, n, mode in cases:
+        m, x, dout = _k5_module(shape, act, 'bf16', mode, dev, seed=18)
+        e = _k5_compare(m, x, dout)
+        err = {k: max(err[k], e[k]) for k in err}
+        t, out = dict.fromkeys(keys, 0.0), None
+        if mode == 'train':
+            x.requires_grad_(True)
+            out = m(x)
+            t['k_fwd'] = _cold_device_ms(lambda: m(x))
+            t['k_bwd'] = _cold_device_ms(lambda: torch.autograd.grad(
+                out, (x, m.weight, m.bias), dout, retain_graph=True))
+            out = m.composition(x)
+            t['e_fwd'] = _cold_device_ms(lambda: m.composition(x))
+            t['e_bwd'] = _cold_device_ms(lambda: torch.autograd.grad(
+                out, (x, m.weight, m.bias), dout, retain_graph=True))
+            # each input read once, each output written once: x and out
+            # forward; x, dout and dx backward
+            t['b_bwd'] = (2 * x.nbytes + dout.nbytes) / HBM_BYTES * 1e3
+        else:
+            with torch.no_grad():
+                t['k_fwd'] = _cold_device_ms(lambda: m(x))
+                t['e_fwd'] = _cold_device_ms(lambda: m.composition(x))
+        t['b_fwd'] = (x.nbytes + dout.nbytes) / HBM_BYTES * 1e3
+        print('phase 18 K5 %s %s x%d %s on %s: forward %.4f ms (bound %.4f, '
+              'eager %.4f), backward %.4f ms (bound %.4f, eager %.4f); vs '
+              'the eager chain max_abs_err %.3e (%.2f ulps), %.2e of the '
+              'elements, gradients %.2fx its distance from float64'
+              % (list(shape), act, n, mode, card, t['k_fwd'], t['b_fwd'],
+                 t['e_fwd'], t['k_bwd'], t['b_bwd'], t['e_bwd'],
+                 e['max_abs_err'], e['max_ulps'], e['share'],
+                 e['grad_ratio']))
+        if t['k_fwd'] < t['b_fwd'] or t['k_bwd'] < t['b_bwd']:
+            raise AssertionError('K5 timed under its bytes bound: the '
+                                 'timing missed work')
+        for key in keys:
+            tot[mode][key] += n * t[key]
+        del m, x, dout, out
+        torch.cuda.empty_cache()
+    tr, ev = tot['train'], tot['eval']
+    ms = tr['k_fwd'] + tr['k_bwd']
+    bound_ms = tr['b_fwd'] + tr['b_bwd']
+    plain_ms = tr['e_fwd'] + tr['e_bwd']
+    print('phase 18 K5 a batch-%d step (%d calls, each with its backward, '
+          'bf16) on %s: %.3f ms (forward %.3f, backward %.3f) against its '
+          'bound %.3f ms (%.1f%%) and the eager chain %.3f ms (forward '
+          '%.3f, backward %.3f); a sampler call (batch %d, eval): %.3f ms '
+          'against %.3f and the eager chain %.3f'
+          % (K5_BATCH, len(step_calls), card, ms, tr['k_fwd'], tr['k_bwd'],
+             bound_ms, 100 * bound_ms / ms, plain_ms, tr['e_fwd'],
+             tr['e_bwd'], 10 * b, ev['k_fwd'], ev['b_fwd'], ev['e_fwd']))
+    return {'name': 'K5 bn_act', 'route': 'cuda',
+            'source': 'text2img_ekl_tpu_torch/csrc/bn_act.cu',
+            'replaces': 'none (XLA fused these ops on the TPU)',
+            'launches': step_launches, 'max_abs_err': err['max_abs_err'],
+            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+            'bound_by': 'bytes', 'library_ms': None,
+            'shape': 'the %d rank-4 BatchNorm calls of a batch-%d step'
+                     % (len(step_calls), K5_BATCH),
+            'share_differing': err['share'], 'max_ulps': err['max_ulps'],
+            'grad_ratio': err['grad_ratio'],
+            'sample_ms': ev['k_fwd'], 'sample_plain_ms': ev['e_fwd']}
 
 
 def _tower_rate_phase(card):
@@ -2217,6 +2662,10 @@ def main() -> int:
     _decoder_phase(tcfg, available['decoder'], reset_launches, launches,
                    card)
 
+    # 18. K5's calls in a step and a sampler call; K5 against the eager
+    #     chain and its bound at the benchmark's shapes
+    k5_record = _bn_act_phase(tcfg, eval_cfg, card)
+
     shutil.rmtree(WORK, ignore_errors=True)
     bad = sorted(m for m in sys.modules
                  if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax',
@@ -2268,6 +2717,7 @@ def main() -> int:
             'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
             'bound_by': bound_by, 'library_ms': library_ms,
             'shape': shape}, **more))
+    record.append(k5_record)
     print(card)
     print(json.dumps({'kernels': record}))
     print(json.dumps({'ok': True, 'device': {

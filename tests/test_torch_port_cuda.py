@@ -45,18 +45,35 @@ the float32 ``dw3x3_reference`` (on the card: cuBLAS, TF32 off); and it is
 held within K4_EMULATION_ULPS float32 ulps of max|dW| to
 ``dw3x3_tf32x3_reference``, the emulation of its arithmetic that the CPU
 tests (tests/test_torch_port_k4_f32.py) hold to the JAX package.
+
+K5 (BatchNorm with its GLU / LeakyReLU / no epilogue, ``ops/bn_act.py``)
+is held to the eager chain it replaces (``BatchNormAct.composition`` on the
+card) at the flagship step's shapes and at ragged ones, bfloat16 and float32
+policies, train, eval and frozen, by ``chip_smoke._k5_compare``, the check
+``chip_smoke.py`` phase 18 makes at the benchmark's shapes, with the bars
+``chip_smoke.K5_*`` (its comment gives their reasons): the BatchNorm
+output within one ulp of the BatchNorm dtype on a small share of the
+elements, the epilogue the eager one on that output bit for bit, the
+running statistics within float32 sum-order tolerance, dx, dweight and dbias
+no farther from the chain in float64 than 1.5 times the eager chain's own
+distance; and two calls bit-identical.
 """
 
 import math
 import os
+import sys
 import threading
 
 import numpy as np
 import pytest
 import torch
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke
 from text2img_ekl_tpu_torch import spans
 from text2img_ekl_tpu_torch.config import cfg_from_file
+from text2img_ekl_tpu_torch.ops import bn_act
 from text2img_ekl_tpu_torch.ops import bn_glu
 from text2img_ekl_tpu_torch.ops import capsule_cuda as cc
 from text2img_ekl_tpu_torch.ops import capsule_variants as cv
@@ -1054,3 +1071,75 @@ def test_k3_k4_raise_on_what_they_do_not_take(card):
                       dy[:, :, :16, :16].contiguous())
     with pytest.raises(ValueError):  # F = 3: outside the envelope
         conv_dw.dw3x3(x, dy[:, :3].contiguous())
+
+
+# ---- K5: BatchNorm with its epilogue ----------------------------------------
+
+K5_SHAPES = [
+    ((512, 128, 64, 64), 'glu'),     # the G's 64 px tails at batch 512
+    ((512, 64, 128, 128), 'glu'),    # the stage-2 upsample's tail
+    ((512, 512, 4, 4), 'leaky'),     # the Ds' 4x4 maps
+    ((512, 64, 64, 64), None),       # a residual block's second BatchNorm
+    ((5, 24, 5, 7), 'glu'),          # ragged batch and H*W: single elements
+    ((3, 40, 6, 6), 'leaky'),
+    ((7, 8, 3, 3), None),
+]
+
+
+@pytest.mark.parametrize('mode', ['train', 'eval', 'frozen'])
+@pytest.mark.parametrize('policy', ['bf16', 'f32'])
+@pytest.mark.parametrize('shape,act', K5_SHAPES)
+def test_k5_matches_the_eager_chain(card, shape, act, policy, mode):
+    m, x, dout = chip_smoke._k5_module(shape, act, policy, mode, card)
+    chip_smoke._k5_compare(m, x, dout)
+
+
+@pytest.mark.parametrize('shape,act', [K5_SHAPES[0], K5_SHAPES[2],
+                                       K5_SHAPES[4]])
+def test_k5_is_deterministic(card, shape, act):
+    m, x, dout = chip_smoke._k5_module(shape, act, 'bf16', 'train', card,
+                                       seed=3)
+    a = chip_smoke._k5_run(m, x, dout, kernel=True)
+    b = chip_smoke._k5_run(m, x, dout, kernel=True)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def test_k5_raises_on_what_it_does_not_take(card):
+    m, x, _ = chip_smoke._k5_module((4, 16, 8, 8), 'glu', 'bf16', 'train',
+                                    card)
+    args = (m.weight, m.bias, m.running_mean, m.running_var, True, True,
+            1e-5, 'glu', torch.bfloat16)
+    with pytest.raises(TypeError):
+        bn_act.bn_act(x.half(), *args)
+    with pytest.raises(TypeError):
+        bn_act.bn_act(x.double(), *args)
+    with pytest.raises(ValueError):  # channels-last: not contiguous NCHW
+        bn_act.bn_act(x.to(memory_format=torch.channels_last), *args)
+    with pytest.raises(ValueError):  # rank 3
+        bn_act.bn_act(x[0], *args)
+    with pytest.raises(ValueError):  # rank 2
+        bn_act.bn_act(x[:, :, 0, 0].contiguous(), *args)
+    with pytest.raises(ValueError):  # x on the CPU
+        bn_act.bn_act(x.cpu(), *args)
+    with pytest.raises(ValueError):  # odd channel count under a GLU
+        bn_act.bn_act(x[:, :15].contiguous(), *args)
+    with pytest.raises(ValueError):  # parameters on the CPU
+        bn_act.bn_act(x, m.weight.cpu(), *args[1:])
+    with pytest.raises(ValueError):
+        bn_act.bn_act(x, *args[:7], 'relu', torch.bfloat16)
+
+
+def test_k5_takes_every_rank4_batchnorm_of_a_step(card):
+    """One training step at GF/DF_DIM 8, batch 4, on the card: K5 runs once
+    for each of the 50 rank-4 BatchNorm calls a forward hook counts, each
+    with its backward (6 kernels), and no rank-4 BatchNorm takes the eager
+    chain (``chip_smoke._k5_calls`` raises otherwise)."""
+    cfg, host, draws = _tiny_step_inputs()
+    state = create_train_state(cfg, card, seed=0)
+    calls, launches = chip_smoke._k5_calls(
+        (state.G, *state.Ds),
+        lambda: make_train_step(cfg)(state, _on(card, host), 0,
+                                     _on(card, draws)))
+    assert len(calls) == 50
+    assert launches == 6 * len(calls)

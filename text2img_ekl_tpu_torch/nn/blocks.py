@@ -16,6 +16,12 @@ casts it. GLU, LeakyReLU and a residual block's sum then run in the BN
 output's type, as JAX promotes them, and cast back to ``dtype``.
 Orthogonal init as the reference's ``weights_init``.
 
+Every BatchNorm of rank 4 and the activation after it are one
+``BatchNormAct`` in the BN slot and an identity in the activation's slot
+(same ``state_dict`` keys): kernel K5 on the card, the eager chain on the
+CPU. The rank-2 BatchNorms (the generators' FC stage, the VC net) stay
+``BatchNorm`` -> ``GLU``.
+
 Two switches of the JAX package are constructor flags here:
 ``fused_bn_glu`` (``TPU_FUSED_BN_GLU``) makes every 4-D BN -> GLU tail one
 ``FusedBatchNormGLU`` (kernel K3), with the same ``state_dict`` keys (the
@@ -33,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import bn_act as bn_act_op
 from ..ops import bn_glu as bn_glu_op
 from ..ops import conv_dw
 
@@ -115,6 +122,11 @@ class BatchNorm(nn.Module):
                     var.detach(), alpha=1.0 - BN_MOMENTUM)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # ``ops.bn_act.bn_act.eager_calls`` counts the rank-4 BatchNorms on
+        # the card that took this eager chain and not kernel K5
+        # (``BatchNormAct``); it reads 0 on the default path
+        if x.dim() == 4 and x.device.type == 'cuda':
+            bn_act_op.bn_act.eager_calls += 1
         xf = x.float()
         if not self.training:
             return F.batch_norm(xf, self.running_mean, self.running_var,
@@ -157,11 +169,11 @@ class FusedBatchNormGLU(BatchNorm):
 
 def bn_glu_tail(planes: int, dtype: torch.dtype, fused: bool,
                 bn_dtype: torch.dtype = torch.float32):
-    """The (BN, GLU) slots of a block's tail: the plain pair, or the fused
-    module and an identity (same ``state_dict`` keys)."""
+    """The (BN, GLU) slots of a block's tail: K3's fused module
+    (``fused_bn_glu``) or ``BatchNormAct``, and an identity."""
     if fused:
         return [FusedBatchNormGLU(planes, dtype, bn_dtype), nn.Identity()]
-    return [BatchNorm(planes, bn_dtype=bn_dtype), GLU(dtype)]
+    return bn_act_tail(planes, 'glu', dtype, bn_dtype)
 
 
 @contextlib.contextmanager
@@ -254,7 +266,7 @@ class ResBlock(nn.Module):
             Conv3x3(channels, channels * 2, dtype, kernel_dw),
             *bn_glu_tail(channels * 2, dtype, fused_bn_glu, bn_dtype),
             Conv3x3(channels, channels, dtype, kernel_dw),
-            BatchNorm(channels, bn_dtype=bn_dtype))
+            BatchNormAct(channels, None, dtype, bn_dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.block(x)
@@ -275,8 +287,67 @@ class LeakyReLU(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        slope = _BF16_SLOPE if x.dtype == torch.bfloat16 else 0.2
-        return F.leaky_relu(x, slope).to(self.dtype)
+        return leaky_relu(x, self.dtype)
+
+
+def leaky_relu(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """LeakyReLU(0.2) in x's type, then a cast to ``dtype``."""
+    slope = _BF16_SLOPE if x.dtype == torch.bfloat16 else 0.2
+    return F.leaky_relu(x, slope).to(dtype)
+
+
+# BatchNormAct's epilogues: (BatchNorm output, compute dtype) -> output, as
+# the GLU and LeakyReLU modules compute them
+_EPILOGUES = {None: None, 'glu': lambda y, dtype: glu(y).to(dtype),
+              'leaky': leaky_relu}
+
+
+class BatchNormAct(BatchNorm):
+    """BatchNorm and the activation after it (``act``: 'glu', 'leaky' or
+    None), with ``BatchNorm``'s parameters, buffers and numerics. On a
+    CUDA tensor of rank 4 it is kernel K5 (``ops.bn_act``), forward and
+    backward, in train mode (``update_running_stats`` honoured) and eval
+    mode; on anything else it is the eager chain ``BatchNorm`` -> ``GLU`` /
+    ``LeakyReLU`` it replaces (``composition``), bit for bit. The output is
+    of the compute ``dtype`` after an activation, of ``bn_dtype`` without
+    one."""
+
+    def __init__(self, num_features: int, act=None,
+                 dtype: torch.dtype = torch.float32,
+                 bn_dtype: torch.dtype = torch.float32):
+        if act not in _EPILOGUES:
+            raise ValueError('act must be glu, leaky or None, got %r'
+                             % (act,))
+        super().__init__(num_features, bn_dtype=bn_dtype)
+        self.act = act
+        self.dtype = dtype
+
+    def composition(self, x: torch.Tensor,
+                    epilogue: bool = True) -> torch.Tensor:
+        """The eager chain: ``BatchNorm.forward``, then the activation as
+        the GLU or LeakyReLU module computes it (cast to ``dtype``)."""
+        y = super().forward(x)
+        if self.act is None or not epilogue:
+            return y
+        return _EPILOGUES[self.act](y, self.dtype)
+
+    def forward(self, x: torch.Tensor, epilogue: bool = True) -> torch.Tensor:
+        """``epilogue=False`` runs the BatchNorm alone (its output in
+        ``bn_dtype``), on the same path."""
+        if x.device.type != 'cuda' or x.dim() != 4:
+            return self.composition(x, epilogue)
+        return bn_act_op.bn_act(x, self.weight, self.bias, self.running_mean,
+                                self.running_var, self.training,
+                                self.update_running_stats, self.eps,
+                                self.act if epilogue else None,
+                                self.bn_dtype)
+
+
+def bn_act_tail(planes: int, act, dtype: torch.dtype,
+                bn_dtype: torch.dtype = torch.float32):
+    """The (BN, activation) slots of a tail: ``BatchNormAct`` and an
+    identity, with the plain pair's ``state_dict`` keys."""
+    return [BatchNormAct(planes, act, dtype, bn_dtype), nn.Identity()]
 
 
 class Conv4x4s2(nn.Conv2d):
@@ -320,8 +391,7 @@ class Block3x3LeakyRelu(nn.Sequential):
                  dtype: torch.dtype = torch.float32, kernel_dw: bool = False,
                  bn_dtype: torch.dtype = torch.float32):
         super().__init__(Conv3x3(in_planes, out_planes, dtype, kernel_dw),
-                         BatchNorm(out_planes, bn_dtype=bn_dtype),
-                         LeakyReLU(dtype))
+                         *bn_act_tail(out_planes, 'leaky', dtype, bn_dtype))
 
 
 class DownBlock(nn.Sequential):
@@ -332,8 +402,7 @@ class DownBlock(nn.Sequential):
                  dtype: torch.dtype = torch.float32,
                  bn_dtype: torch.dtype = torch.float32):
         super().__init__(Conv4x4s2(in_planes, out_planes, dtype),
-                         BatchNorm(out_planes, bn_dtype=bn_dtype),
-                         LeakyReLU(dtype))
+                         *bn_act_tail(out_planes, 'leaky', dtype, bn_dtype))
 
 
 class EncodeBy16(nn.Sequential):
@@ -346,6 +415,5 @@ class EncodeBy16(nn.Sequential):
         layers = [Conv4x4s2(3, ndf, dtype), LeakyReLU(dtype)]
         for k in (1, 2, 4):
             layers += [Conv4x4s2(ndf * k, ndf * k * 2, dtype),
-                       BatchNorm(ndf * k * 2, bn_dtype=bn_dtype),
-                       LeakyReLU(dtype)]
+                       *bn_act_tail(ndf * k * 2, 'leaky', dtype, bn_dtype)]
         super().__init__(*layers)
