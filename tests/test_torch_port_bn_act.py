@@ -28,6 +28,7 @@ from text2img_ekl_tpu_torch.models import discriminator as tdisc
 from text2img_ekl_tpu_torch.models import generator as tgen
 from text2img_ekl_tpu_torch.nn import blocks as tblocks
 from text2img_ekl_tpu_torch.ops import bn_act
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN_CFG = os.path.join(ROOT, 'cfg', 'birds_2stg_splitz_cap_ca.realcls.yml')

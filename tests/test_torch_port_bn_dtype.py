@@ -86,6 +86,7 @@ from text2img_ekl_tpu_torch.io_utils.weights import \
 from text2img_ekl_tpu_torch.models import discriminator as tdisc
 from text2img_ekl_tpu_torch.models import generator as tgen
 from text2img_ekl_tpu_torch.nn import blocks as tblocks
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, 'cfg', 'birds_2stg_splitz_cap_ca_eval.realcls.yml')
@@ -101,16 +102,6 @@ STEP_RTOL, STEP_ATOL = 1e-4, 1e-5
 NO_EXCESS_PRECISION = {'xla_allow_excess_precision': False}
 JAX_GLOBALS = ('BN_DTYPE', 'SPLIT_JOINT_CONV', 'FUSED_BN_GLU', 'SUBPIXEL_UP',
                'PALLAS_DW')
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """The suite runs in several worker processes at once; torch's default
-    of one thread per core in each of them oversubscribes the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @contextlib.contextmanager

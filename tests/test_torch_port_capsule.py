@@ -23,17 +23,7 @@ from text2img_ekl_tpu.ops import capsule as jcap
 from text2img_ekl_tpu_torch.ops import capsule as tcap
 from text2img_ekl_tpu_torch.ops import capsule_cuda as cc
 from text2img_ekl_tpu_torch.ops.capsule_cuda import capsule_routing
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """The suite runs in several worker processes at once; torch's default
-    of one thread per core in each of them oversubscribes the CPU (the
-    port's files took 3x longer under six workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 
 def assert_close(out, ref):

@@ -38,6 +38,7 @@ from jax.experimental import pallas as pl
 
 from text2img_ekl_tpu.ops import capsule as jcap
 from text2img_ekl_tpu_torch.ops import capsule_variants as cv
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH = os.path.join(REPO, 'tools', 'bench_capsule_torch.py')
@@ -48,16 +49,6 @@ SHAPES = {'L8': ((5, 6, 8), (16, 16, 8)), 'L16': ((3, 4, 16), (12, 32, 16))}
 # two NB values per variant
 NBS = {'forward_stored': (2, 4), 'forward_seq': (2, 4),
        'forward_recompute': (3, 8)}
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """The suite runs in several worker processes at once; torch's default
-    of one thread per core in each of them oversubscribes the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

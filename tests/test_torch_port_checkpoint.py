@@ -27,22 +27,13 @@ from text2img_ekl_tpu_torch.config import cfg_from_file
 from text2img_ekl_tpu_torch.data import DataLoader, SyntheticTextDataset
 from text2img_ekl_tpu_torch.io_utils import checkpoint as ckpt
 from text2img_ekl_tpu_torch.train import state as tstate
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN_CFG = os.path.join(REPO, 'cfg', 'birds_2stg_splitz_cap_ca.realcls.yml')
 EVAL_CFG = os.path.join(REPO, 'cfg',
                         'birds_2stg_splitz_cap_ca_eval.realcls.yml')
 B = 4
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """The suite runs in several worker processes at once; torch's default
-    of one thread per core in each of them oversubscribes the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def small_cfg(df_dim=8, ema_decay=0.0):

@@ -16,6 +16,7 @@ from PIL import Image
 
 from text2img_ekl_tpu_torch.config import cfg_from_file
 from text2img_ekl_tpu_torch.data import DataLoader, SyntheticTextDataset
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EVAL_CFG = os.path.join(REPO, 'cfg',
@@ -23,20 +24,9 @@ EVAL_CFG = os.path.join(REPO, 'cfg',
 TRAIN_CFG = os.path.join(REPO, 'cfg', 'birds_2stg_splitz_cap_ca.realcls.yml')
 
 
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """The suite runs in several worker processes at once; torch's default
-    of one thread per core in each of them oversubscribes the CPU (the
-    port's files took 3x longer under six workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _run(args, cwd=REPO, **env):
     full_env = {k: v for k, v in os.environ.items() if k != 'T2I_JAX_CACHE'}
-    full_env['OMP_NUM_THREADS'] = '1'  # see _one_torch_thread
+    full_env['OMP_NUM_THREADS'] = '1'  # see one_torch_thread
     full_env.update(env)
     return subprocess.run([sys.executable] + args, cwd=cwd, env=full_env,
                           capture_output=True, text=True, timeout=300)

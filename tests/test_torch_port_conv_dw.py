@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from text2img_ekl_tpu_torch.ops import conv_dw
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH = os.path.join(REPO, 'tools', 'bench_conv_dw_torch.py')

@@ -38,22 +38,13 @@ from text2img_ekl_tpu_torch.eval import convert_tf as tconv  # noqa: E402
 from text2img_ekl_tpu_torch.eval import tf_files  # noqa: E402
 from text2img_ekl_tpu_torch.io_utils import weights  # noqa: E402
 from text2img_ekl_tpu_torch.models import inception_v3 as tinc  # noqa: E402
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NUM_CLASSES = 51
 # converted towers: pool_3 and logits |d| <= 1e-4 max|ref| (float32 convs
 # in another order); against TensorFlow running the graph, the same bar
 TOWER_TOL = 1e-4
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """The suite runs in several worker processes at once; torch's default
-    of one thread per core in each of them oversubscribes the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _flat(tree, prefix=()):

@@ -36,23 +36,13 @@ from text2img_ekl_tpu_torch.io_utils.weights import (
 from text2img_ekl_tpu_torch.models import discriminator as tdisc
 from text2img_ekl_tpu_torch.models import generator as tgen
 from text2img_ekl_tpu_torch.nn.blocks import frozen_running_stats
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, 'cfg', 'birds_2stg_splitz_cap_ca.realcls.yml')
 TOL = dict(rtol=1e-4, atol=1e-4)
 STATS_TOL = dict(rtol=1e-6, atol=1e-6)
 B = 3
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """The suite runs in several worker processes at once; torch's default
-    of one thread per core in each of them oversubscribes the CPU (the
-    port's files took 3x longer under six workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def small_cfg(use_cap=True):

@@ -27,6 +27,7 @@ from text2img_ekl_tpu_torch.eval import inception_score as tis
 from text2img_ekl_tpu_torch.io_utils.weights import (RANDOM_INCEPTION_SEED,
                                                      inception_to_flax,
                                                      random_inception)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 # probabilities |d| <= 1e-5; activations |d| <= 1e-4 max|ref| (float32
 # towers, convolutions summed in another order); IS, NLPP and FID on the
@@ -37,16 +38,6 @@ SCORE_RTOL = 1e-6
 # the CLIs print IS and FID with 4 decimals: within half a unit of the
 # last digit of the value JAX's scorer gives on the same images
 PRINT_TOL = 5e-5 + 1e-6
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """The suite runs in several worker processes at once; torch's default
-    of one thread per core in each of them oversubscribes the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

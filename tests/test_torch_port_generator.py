@@ -35,22 +35,12 @@ from text2img_ekl_tpu_torch.io_utils.weights import (
     jax_generator_to_state_dict, load_pth_generator)
 from text2img_ekl_tpu_torch.models import generator as tgen
 from text2img_ekl_tpu_torch.train.sample import caption_sample
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, 'cfg', 'birds_2stg_splitz_cap_ca_eval.realcls.yml')
 TOL = dict(rtol=1e-4, atol=1e-4)
 B = 2
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """The suite runs in several worker processes at once; torch's default
-    of one thread per core in each of them oversubscribes the CPU (the
-    port's files took 3x longer under six workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def small_cfg(use_cap=True):

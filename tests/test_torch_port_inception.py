@@ -23,22 +23,13 @@ import jax.numpy as jnp
 from text2img_ekl_tpu.models import inception_v3 as jinc
 from text2img_ekl_tpu_torch.io_utils import weights
 from text2img_ekl_tpu_torch.models import inception_v3 as tinc
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 # pool_3 and logits: |d| <= 1e-4 max|ref| (float32 convolutions summed in
 # another order); preprocessing: |d| <= 1e-5 on [-1, 1] values
 TOWER_TOL = 1e-4
 PRE_TOL = 1e-5
 NUM_CLASSES = 51
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """The suite runs in several worker processes at once; torch's default
-    of one thread per core in each of them oversubscribes the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _flat(tree, prefix=()):

@@ -28,6 +28,7 @@ from text2img_ekl_tpu_torch.io_utils.weights import (RANDOM_INCEPTION_SEED,
                                                      random_inception)
 from text2img_ekl_tpu_torch.train import trainer as trainer_mod
 from text2img_ekl_tpu_torch.train.trainer import CondGANTrainer
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN_CFG = os.path.join(REPO, 'cfg', 'birds_2stg_splitz_cap_ca.realcls.yml')
@@ -37,16 +38,6 @@ B = 4
 # direct IS against the PNG directory's, the same float32 tower on the
 # same uint8 images: 1e-6 relative
 SCORE_RTOL = 1e-6
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """The suite runs in several worker processes at once; torch's default
-    of one thread per core in each of them oversubscribes the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class _StubScorer:

@@ -28,6 +28,7 @@ import torch
 from text2img_ekl_tpu.ops import capsule as jcap
 from text2img_ekl_tpu_torch.ops import capsule_cuda as cc
 from text2img_ekl_tpu_torch.ops.capsule import capsule_linear
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH = os.path.join(REPO, 'tools', 'bench_capsule_torch.py')
@@ -35,16 +36,6 @@ K1_RTOL, K1_ATOL = 1e-4, 1e-5
 K2_RTOL, K2_ATOL = 1e-3, 1e-4
 D_HEAD = (32, 16, 512, 201, 16)    # B, I, L, J, O: the D class head
 G_HEAD = (32, 48, 8, 1024, 32)     # the G head at the training batch
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """The suite runs in several worker processes at once; torch's default
-    of one thread per core in each of them oversubscribes the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(shape, seed):

@@ -31,16 +31,7 @@ from text2img_ekl_tpu.ops import capsule as jcap
 from text2img_ekl_tpu.ops import capsule_pallas as jcp
 from text2img_ekl_tpu_torch.ops import capsule_cuda as cc
 from text2img_ekl_tpu_torch.ops.capsule import capsule_linear
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """The suite runs in several worker processes at once; torch's default
-    of one thread per core in each of them oversubscribes the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 
 # ---- the plan --------------------------------------------------------------

@@ -26,21 +26,12 @@ import torch
 
 from text2img_ekl_tpu.ops import capsule as jcap
 from text2img_ekl_tpu_torch.ops import capsule_cuda as cc
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH = os.path.join(REPO, 'tools', 'bench_capsule_torch.py')
 K2_RTOL, K2_ATOL = 1e-3, 1e-4
 FLAGSHIP = (32, 16, 512, 201, 16)   # B, I, L, J, O: the D class head
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """The suite runs in several worker processes at once; torch's default
-    of one thread per core in each of them oversubscribes the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(shape, seed):

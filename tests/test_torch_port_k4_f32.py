@@ -27,20 +27,11 @@ import torch
 
 from text2img_ekl_tpu.ops import conv_dw as jconv_dw
 from text2img_ekl_tpu_torch.ops import capsule_cuda, conv_dw, tf32
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 H100_SMS = 132
 K4_RTOL, K4_ATOL = 1e-3, 1e-4
 FAITHFUL = (2, 16, 64, 24)   # (B, C, H, F): K = 2 * 64 * 64 = 8,192
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """The suite runs in several worker processes at once; torch's default
-    of one thread per core in each of them oversubscribes the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(shape, seed):

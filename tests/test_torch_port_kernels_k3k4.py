@@ -48,6 +48,7 @@ from text2img_ekl_tpu_torch.io_utils.weights import \
 from text2img_ekl_tpu_torch.models import generator as tgen
 from text2img_ekl_tpu_torch.nn import blocks as tblocks
 from text2img_ekl_tpu_torch.ops import bn_glu, conv_dw
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, 'cfg', 'birds_2stg_splitz_cap_ca_eval.realcls.yml')
@@ -56,16 +57,6 @@ GEN_TOL = dict(rtol=1e-5, atol=1e-5)
 # the JAX package's block policies, which build_generator sets from a config
 JAX_GLOBALS = ('BN_DTYPE', 'SPLIT_JOINT_CONV', 'FUSED_BN_GLU', 'SUBPIXEL_UP',
                'PALLAS_DW')
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """The suite runs in several worker processes at once; torch's default
-    of one thread per core in each of them oversubscribes the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

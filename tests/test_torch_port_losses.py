@@ -18,22 +18,12 @@ import torch
 
 from text2img_ekl_tpu.train import losses as jl
 from text2img_ekl_tpu_torch.train import losses as tl
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-7)
 ULP = np.float32(np.spacing(np.float32(1.0)))
 SATURATED = np.array([0.0, 1.0, 1.0 + ULP, -ULP, 1.0 - ULP / 2, 0.5,
                       0.25], np.float32)
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """The suite runs in several worker processes at once; torch's default
-    of one thread per core in each of them oversubscribes the CPU (the
-    port's files took 3x longer under six workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _value_and_grad(jfn, tfn, *args):

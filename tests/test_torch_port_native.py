@@ -36,6 +36,7 @@ from text2img_ekl_tpu_torch.data.native_loader import (NativeDecoder,
 from text2img_ekl_tpu_torch.io_utils import images as timages
 from text2img_ekl_tpu_torch.io_utils import native_writer
 from text2img_ekl_tpu_torch.ops import _build
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EVAL_CFG = os.path.join(REPO, 'cfg',
@@ -43,16 +44,6 @@ EVAL_CFG = os.path.join(REPO, 'cfg',
 # base 16, two branches: 16 and 32 px pyramids, oversize 38
 BASE, BRANCHES = 16, 2
 N_IMAGES = 6
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """Several worker processes run the suite at once; one torch thread
-    each keeps them from oversubscribing the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

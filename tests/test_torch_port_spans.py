@@ -30,6 +30,7 @@ from text2img_ekl_tpu_torch.models.generator import build_generator
 from text2img_ekl_tpu_torch.train.sample import caption_sample
 from text2img_ekl_tpu_torch.train.state import create_train_state
 from text2img_ekl_tpu_torch.train.step import make_train_step
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 EVAL_CFG = os.path.join(REPO, 'cfg',
                         'birds_2stg_splitz_cap_ca_eval.realcls.yml')
@@ -37,14 +38,6 @@ B = 4
 PHASES = ['step.g_forward', 'step.d_passes', 'step.d_backward',
           'step.d_adam', 'step.d_passes', 'step.d_backward', 'step.d_adam',
           'step.g_loss', 'step.g_backward', 'step.g_adam']
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

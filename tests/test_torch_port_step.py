@@ -61,6 +61,7 @@ from text2img_ekl_tpu_torch.io_utils.checkpoint import (restore_train_state,
 from text2img_ekl_tpu_torch.train.state import (create_train_state,
                                                 train_state_dict)
 from text2img_ekl_tpu_torch.train.step import make_train_step
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, 'cfg', 'birds_2stg_splitz_cap_ca.realcls.yml')
@@ -69,17 +70,6 @@ STEPS = 2
 STEP1 = dict(rtol=1e-4, atol=1e-5)
 STEP2 = dict(rtol=1e-3, atol=1e-4)
 MOMENT_RTOL, MOMENT_ATOL = 1e-2, 1e-5
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """The suite runs in several worker processes at once; torch's default
-    of one thread per core in each of them oversubscribes the CPU (the
-    port's files took 3x longer under six workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def small_cfg():

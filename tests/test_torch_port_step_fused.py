@@ -27,19 +27,10 @@ from text2img_ekl_tpu.nn import blocks as jblocks
 from text2img_ekl_tpu.ops import conv_dw as jconv_dw
 from text2img_ekl_tpu_torch.nn import blocks as tblocks
 from text2img_ekl_tpu_torch.ops import bn_glu, conv_dw
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 JAX_GLOBALS = ('BN_DTYPE', 'SPLIT_JOINT_CONV', 'FUSED_BN_GLU', 'SUBPIXEL_UP',
                'PALLAS_DW')
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """The suite runs in several worker processes at once; torch's default
-    of one thread per core in each of them oversubscribes the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _fused_cfg():
